@@ -1,0 +1,71 @@
+// Python binding of the block-sparse kernels. The only source that includes
+// torch/extension.h: the kernels' own files include only CUDA and c10
+// headers, so they build in seconds.
+#include <torch/extension.h>
+#include <c10/cuda/CUDAGuard.h>
+#include <c10/cuda/CUDAStream.h>
+
+void bsr_spmv_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
+                     void* y, int n_row_tiles, int tm, int tk, bool bf16, cudaStream_t stream);
+void bsr_spmm_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
+                     void* y, int n_row_tiles, int tm, int tk, int n, int bn, bool bf16,
+                     cudaStream_t stream);
+
+namespace {
+
+void check_operands(const torch::Tensor& tiles, const torch::Tensor& row_ptr,
+                    const torch::Tensor& col_ids, const torch::Tensor& x,
+                    const torch::Tensor& y) {
+  for (const torch::Tensor* t : {&tiles, &row_ptr, &col_ids, &x, &y}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == tiles.device(),
+                "all operands must lie on one CUDA device");
+    TORCH_CHECK(t->is_contiguous(), "operands must be contiguous");
+  }
+  TORCH_CHECK(tiles.dim() == 3, "tiles must be (nb, tm, tk)");
+  TORCH_CHECK(tiles.scalar_type() == at::kFloat || tiles.scalar_type() == at::kBFloat16,
+              "tiles must be float32 or bfloat16");
+  TORCH_CHECK(x.scalar_type() == tiles.scalar_type() && y.scalar_type() == tiles.scalar_type(),
+              "tiles, x and y must share one dtype");
+  TORCH_CHECK(row_ptr.scalar_type() == at::kInt && col_ids.scalar_type() == at::kInt,
+              "row_ptr and col_ids must be int32");
+  TORCH_CHECK(row_ptr.dim() == 1 && row_ptr.size(0) >= 1, "row_ptr must be (n_row_tiles + 1,)");
+  TORCH_CHECK(col_ids.dim() == 1 && col_ids.size(0) == tiles.size(0),
+              "col_ids must be (nb,)");
+}
+
+void bsr_spmv(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
+              torch::Tensor x, torch::Tensor y) {
+  check_operands(tiles, row_ptr, col_ids, x, y);
+  const int tm = tiles.size(1), tk = tiles.size(2);
+  const int n_row_tiles = row_ptr.size(0) - 1;
+  TORCH_CHECK(x.dim() == 1 && x.size(0) % tk == 0, "x must be (k_pad,) with k_pad % tk == 0");
+  TORCH_CHECK(y.dim() == 1 && y.size(0) == static_cast<int64_t>(n_row_tiles) * tm,
+              "y must be (n_row_tiles * tm,)");
+  const c10::cuda::CUDAGuard guard(tiles.device());
+  bsr_spmv_launch(tiles.data_ptr(), row_ptr.data_ptr<int>(), col_ids.data_ptr<int>(),
+                  x.data_ptr(), y.data_ptr(), n_row_tiles, tm, tk,
+                  tiles.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+}
+
+void bsr_spmm(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
+              torch::Tensor x, torch::Tensor y, int64_t bn) {
+  check_operands(tiles, row_ptr, col_ids, x, y);
+  const int tm = tiles.size(1), tk = tiles.size(2);
+  const int n_row_tiles = row_ptr.size(0) - 1;
+  TORCH_CHECK(x.dim() == 2 && x.size(0) % tk == 0, "x must be (k_pad, n) with k_pad % tk == 0");
+  TORCH_CHECK(y.dim() == 2 && y.size(0) == static_cast<int64_t>(n_row_tiles) * tm &&
+                  y.size(1) == x.size(1),
+              "y must be (n_row_tiles * tm, n)");
+  TORCH_CHECK(bn == 32 || bn == 64 || bn == 128, "bn must be 32, 64 or 128");
+  const c10::cuda::CUDAGuard guard(tiles.device());
+  bsr_spmm_launch(tiles.data_ptr(), row_ptr.data_ptr<int>(), col_ids.data_ptr<int>(),
+                  x.data_ptr(), y.data_ptr(), n_row_tiles, tm, tk, x.size(1), bn,
+                  tiles.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("bsr_spmv", &bsr_spmv, "K1: block-sparse SpMV into y (launches on the current stream)");
+  m.def("bsr_spmm", &bsr_spmm, "K2: block-sparse SpMM into y (launches on the current stream)");
+}

@@ -1,0 +1,107 @@
+"""Public wrappers for the block-sparse kernels (port of ``repro.kernels.ops``).
+
+``bsr_spmv`` and ``bsr_spmm`` take the reference's arguments, minus
+``interpret`` and plus ``device`` (``None`` means the CUDA card). Inputs may
+be numpy arrays or tensors; tensors must already lie on ``device``. On a CUDA
+device the wrapper checks dtype, shape and contiguity, allocates the output
+with ``torch.empty`` and launches the hand-written kernel on the current
+stream: there is no fallback, and what the kernel does not take raises. On
+the CPU it runs the plain PyTorch version in ``ref.py``.
+
+``launches`` counts the kernel launches of each wrapper, so a caller can show
+that a path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import on_device as _on, resolve_device
+from . import ref
+
+__all__ = ["bsr_spmm", "bsr_spmv", "launches", "reset_launches", "row_ptr_from_ids"]
+
+launches = {"bsr_spmv": 0, "bsr_spmm": 0}
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def row_ptr_from_ids(row_ids: torch.Tensor, n_row_tiles: int) -> torch.Tensor:
+    """CSR offsets (n_row_tiles + 1,) int32 over sorted ``row_ids``."""
+    bounds = torch.arange(n_row_tiles + 1, dtype=torch.int32, device=row_ids.device)
+    return torch.searchsorted(row_ids, bounds, out_int32=True)
+
+
+def _prepare(tiles, row_ids, col_ids, x, row_ptr, m_pad, device, x_dim):
+    dev = resolve_device(device)
+    tiles, x = _on(tiles, dev), _on(x, dev)
+    row_ids = _on(row_ids, dev, torch.int32)
+    col_ids = _on(col_ids, dev, torch.int32)
+    if tiles.dim() != 3:
+        raise ValueError(f"tiles must be (nb, tm, tk), got {tuple(tiles.shape)}")
+    nb, tm, tk = tiles.shape
+    if tiles.dtype not in _DTYPES or x.dtype != tiles.dtype:
+        raise TypeError(f"tiles and x must share float32 or bfloat16, got {tiles.dtype}, {x.dtype}")
+    if row_ids.shape != (nb,) or col_ids.shape != (nb,):
+        raise ValueError("row_ids and col_ids must be (nb,)")
+    if x.dim() != x_dim or x.shape[0] % tk:
+        raise ValueError(f"x must be {x_dim}-D with a leading dim divisible by tk={tk}")
+    if m_pad % tm:
+        raise ValueError(f"m_pad={m_pad} must be a multiple of tm={tm}")
+    if not (tiles.is_contiguous() and x.is_contiguous()):
+        raise ValueError("tiles and x must be contiguous")
+    if dev.type == "cuda":
+        if row_ptr is None:
+            row_ptr = row_ptr_from_ids(row_ids, m_pad // tm)
+        row_ptr = _on(row_ptr, dev, torch.int32)
+        if row_ptr.shape != (m_pad // tm + 1,):
+            raise ValueError(f"row_ptr must be ({m_pad // tm + 1},)")
+    return dev, tiles, row_ids, col_ids, x, row_ptr
+
+
+def bsr_spmv(tiles, row_ids, col_ids, x, *, m_pad, row_ptr=None, device=None):
+    """Block-sparse SpMV: y (m_pad,) from uniform tiles + tables.
+
+    ``row_ids`` must be sorted; ``row_ptr`` (from ``TiledPattern.row_ptr``)
+    spares the CUDA path a search over them.
+    """
+    dev, tiles, row_ids, col_ids, x, row_ptr = _prepare(
+        tiles, row_ids, col_ids, x, row_ptr, m_pad, device, x_dim=1
+    )
+    if dev.type == "cpu":
+        return ref.bsr_spmv_ref(tiles, row_ids, col_ids, x, m_pad)
+    y = torch.empty((m_pad,), dtype=x.dtype, device=dev)
+    if m_pad:
+        from ._build import load_kernels
+
+        load_kernels().bsr_spmv(tiles, row_ptr, col_ids, x, y)
+        launches["bsr_spmv"] += 1
+    return y
+
+
+def bsr_spmm(tiles, row_ids, col_ids, x, *, m_pad, bn=128, row_ptr=None, device=None):
+    """Block-sparse SpMM: y (m_pad, n) from uniform tiles + tables.
+
+    ``bn`` is the column block of one CTA; the kernel takes 32, 64 or 128,
+    so it is rounded up to one of them (it shapes the schedule, not the
+    result). Columns past ``n`` are masked in the kernel.
+    """
+    dev, tiles, row_ids, col_ids, x, row_ptr = _prepare(
+        tiles, row_ids, col_ids, x, row_ptr, m_pad, device, x_dim=2
+    )
+    if dev.type == "cpu":
+        return ref.bsr_spmm_ref(tiles, row_ids, col_ids, x, m_pad)
+    n = x.shape[1]
+    y = torch.empty((m_pad, n), dtype=x.dtype, device=dev)
+    if m_pad and n:
+        from ._build import load_kernels
+
+        width = min(bn, n)
+        kernel_bn = 32 if width <= 32 else 64 if width <= 64 else 128
+        load_kernels().bsr_spmm(tiles, row_ptr, col_ids, x, y, kernel_bn)
+        launches["bsr_spmm"] += 1
+    return y

@@ -1,0 +1,194 @@
+"""PyTorch port, kernels K1 (bsr_spmv) and K2 (bsr_spmm): the port's plain
+versions against the JAX package's Pallas kernels in interpret mode on the
+same tables, and the CUDA kernels against the plain versions on a card.
+
+The JAX package comes in through the ``jx`` fixture, so that on a GPU
+machine without JAX the CUDA tests run and the parity tests skip."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist runs this file beside the JAX suites
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:  # keep deterministic cases running without hypothesis
+    from _hypothesis_stub import given, settings, st
+
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+# as in tests/test_kernels.py: float32 sums in another order, bfloat16
+# inputs (and the Pallas kernel's bfloat16 adds per tile)
+TOL = {"float32": 2e-5, "bfloat16": 6e-2}
+requires_cuda = pytest.mark.skipif(
+    "not torch.cuda.is_available()", reason="needs a CUDA device to launch the kernel"
+)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The reference: the JAX package's kernel wrappers and numpy oracles,
+    run on JAX's CPU device in full float32 even where JAX also sees a GPU
+    (whose default float32 dot is TF32)."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels import ops, ref
+
+    with jax.default_device(jax.devices("cpu")[0]), jax.default_matmul_precision("highest"):
+        yield SimpleNamespace(jnp=jax.numpy, ops=ops, ref=ref)
+
+
+def _tables(nb, tm, tk, n_rows, n_cols, seed, empty_rows=0):
+    """Random sorted tile tables; ``empty_rows`` row tiles get no tile."""
+    rng = np.random.default_rng(seed)
+    live = rng.permutation(n_rows)[empty_rows:]
+    extra = rng.choice(live, max(nb - len(live), 0))
+    rows = np.sort(np.concatenate([live, extra])).astype(np.int32)
+    cols = rng.integers(0, n_cols, len(rows)).astype(np.int32)
+    tiles = rng.standard_normal((len(rows), tm, tk)).astype(np.float32)
+    return tiles, rows, cols
+
+
+def _as(jnp, a, dtype):
+    """Both frameworks' view of one numpy array in ``dtype``."""
+    j = jnp.asarray(a, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    return j, torch.as_tensor(np.array(j.astype(jnp.float32))).to(getattr(torch, dtype))
+
+
+def _close(port, ref, dtype, rows=None):
+    port = port.float().numpy()
+    ref = np.asarray(ref).astype(np.float32)
+    if rows is not None:
+        port, ref = port[rows], ref[rows]
+    np.testing.assert_allclose(port, ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tm,tk", [(8, 8), (8, 16), (16, 8), (5, 3)])
+def test_spmv_plain_matches_pallas(jx, tm, tk, dtype):
+    n_rows, n_cols = 4, 3
+    tiles, rows, cols = _tables(9, tm, tk, n_rows, n_cols, seed=tm + tk)
+    x = np.random.default_rng(1).standard_normal(n_cols * tk).astype(np.float32)
+    (jt, tt), (jxv, tx) = _as(jx.jnp, tiles, dtype), _as(jx.jnp, x, dtype)
+    want = jx.ops.bsr_spmv(jt, rows, cols, jxv, m_pad=n_rows * tm, interpret=True)
+    got = tops.bsr_spmv(tt, rows, cols, tx, m_pad=n_rows * tm, device="cpu")
+    assert got.dtype == tx.dtype and got.shape == (n_rows * tm,)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tm,tk,n,bn", [(8, 8, 24, 8), (8, 16, 13, 8), (16, 8, 5, 128), (5, 3, 9, 4)])
+def test_spmm_plain_matches_pallas(jx, tm, tk, n, bn, dtype):
+    n_rows, n_cols = 4, 3
+    tiles, rows, cols = _tables(9, tm, tk, n_rows, n_cols, seed=tm * tk)
+    x = np.random.default_rng(2).standard_normal((n_cols * tk, n)).astype(np.float32)
+    (jt, tt), (jxv, tx) = _as(jx.jnp, tiles, dtype), _as(jx.jnp, x, dtype)
+    want = jx.ops.bsr_spmm(jt, rows, cols, jxv, m_pad=n_rows * tm, bn=bn, interpret=True)
+    got = tops.bsr_spmm(tt, rows, cols, tx, m_pad=n_rows * tm, bn=bn, device="cpu")
+    assert got.dtype == tx.dtype and got.shape == (n_rows * tm, n)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["spmv", "spmm"])
+def test_empty_row_tiles_are_zero(jx, kind):
+    """The Pallas kernels leave a row tile they never visit unset; the port
+    writes it as zeros. Visited rows match Pallas, all rows match the
+    reference's zero-filled oracle."""
+    tm, tk, n_rows, n_cols = 8, 16, 6, 3
+    tiles, rows, cols = _tables(10, tm, tk, n_rows, n_cols, seed=3, empty_rows=2)
+    visited = np.repeat(np.isin(np.arange(n_rows), rows), tm)
+    assert not visited.all()
+    rng = np.random.default_rng(4)
+    if kind == "spmv":
+        x = rng.standard_normal(n_cols * tk).astype(np.float32)
+        got = tops.bsr_spmv(tiles, rows, cols, x, m_pad=n_rows * tm, device="cpu")
+        pallas = jx.ops.bsr_spmv(tiles, rows, cols, x, m_pad=n_rows * tm, interpret=True)
+        oracle = jx.ref.bsr_spmv_ref(tiles, rows, cols, x, n_rows * tm)
+    else:
+        x = rng.standard_normal((n_cols * tk, 11)).astype(np.float32)
+        got = tops.bsr_spmm(tiles, rows, cols, x, m_pad=n_rows * tm, bn=8, device="cpu")
+        pallas = jx.ops.bsr_spmm(tiles, rows, cols, x, m_pad=n_rows * tm, bn=8, interpret=True)
+        oracle = jx.ref.bsr_spmm_ref(tiles, rows, cols, x, n_rows * tm)
+    _close(got, pallas, "float32", rows=visited)
+    _close(got, oracle, "float32")
+    assert (got[~torch.as_tensor(visited)] == 0).all()
+
+
+@settings(max_examples=10, deadline=None)
+@given(
+    nb=st.integers(1, 12),
+    tm=st.integers(1, 16),
+    tk=st.integers(1, 16),
+    n_rows=st.integers(1, 5),
+    n_cols=st.integers(1, 4),
+    n=st.integers(1, 17),
+    seed=st.integers(0, 99),
+)
+def test_plain_versions_match_reference_oracle(jx, nb, tm, tk, n_rows, n_cols, n, seed):
+    tiles, rows, cols = _tables(nb, tm, tk, n_rows, n_cols, seed, empty_rows=seed % n_rows)
+    rng = np.random.default_rng(seed + 1)
+    x = rng.standard_normal(n_cols * tk).astype(np.float32)
+    xm = rng.standard_normal((n_cols * tk, n)).astype(np.float32)
+    m_pad = n_rows * tm
+    _close(tops.bsr_spmv(tiles, rows, cols, x, m_pad=m_pad, device="cpu"),
+           jx.ref.bsr_spmv_ref(tiles, rows, cols, x, m_pad), "float32")
+    _close(tops.bsr_spmm(tiles, rows, cols, xm, m_pad=m_pad, device="cpu"),
+           jx.ref.bsr_spmm_ref(tiles, rows, cols, xm, m_pad), "float32")
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    tiles, rows, cols = _tables(4, 8, 8, 2, 2, seed=0)
+    x = np.zeros(16, np.float32)
+    with pytest.raises(TypeError):  # dtypes differ
+        tops.bsr_spmv(tiles, rows, cols, x.astype(np.float64), m_pad=16, device="cpu")
+    with pytest.raises(TypeError):  # float16 is not taken
+        tops.bsr_spmv(tiles.astype(np.float16), rows, cols, x.astype(np.float16),
+                      m_pad=16, device="cpu")
+    with pytest.raises(ValueError):  # m_pad not a multiple of tm
+        tops.bsr_spmv(tiles, rows, cols, x, m_pad=12, device="cpu")
+    with pytest.raises(ValueError):  # x is not a whole number of k tiles
+        tops.bsr_spmv(tiles, rows, cols, x[:15], m_pad=16, device="cpu")
+    with pytest.raises(ValueError):  # col_ids of another length
+        tops.bsr_spmv(tiles, rows, cols[:3], x, m_pad=16, device="cpu")
+    with pytest.raises(ValueError):  # spmm wants a 2-D x
+        tops.bsr_spmm(tiles, rows, cols, x, m_pad=16, device="cpu")
+    with pytest.raises(ValueError):  # non-contiguous operand
+        tops.bsr_spmm(tiles, rows, cols, torch.zeros(4, 16).T, m_pad=16, device="cpu")
+
+
+def _cuda_case(dtype, seed):
+    tiles, rows, cols = _tables(60, 16, 16, 23, 9, seed=seed, empty_rows=4)
+    dev = torch.device("cuda")
+    t = torch.as_tensor(tiles, device=dev).to(dtype)
+    r, c = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    return t, r, c, dev
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bsr_spmv_matches_plain(dtype):
+    t, r, c, dev = _cuda_case(getattr(torch, dtype), seed=5)
+    x = torch.randn(9 * 16, device=dev).to(t.dtype)
+    before = tops.launches["bsr_spmv"]
+    y = tops.bsr_spmv(t, r, c, x, m_pad=23 * 16, device=dev)
+    torch.cuda.synchronize()
+    assert tops.launches["bsr_spmv"] == before + 1
+    ref = tref.bsr_spmv_ref(t, r, c, x, 23 * 16)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= tol
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bsr_spmm_matches_plain(dtype):
+    t, r, c, dev = _cuda_case(getattr(torch, dtype), seed=6)
+    x = torch.randn(9 * 16, 100, device=dev).to(t.dtype)  # n not a multiple of bn
+    before = tops.launches["bsr_spmm"]
+    y = tops.bsr_spmm(t, r, c, x, m_pad=23 * 16, bn=128, device=dev)
+    torch.cuda.synchronize()
+    assert tops.launches["bsr_spmm"] == before + 1
+    ref = tref.bsr_spmm_ref(t, r, c, x, 23 * 16)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= tol
