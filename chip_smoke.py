@@ -5,12 +5,13 @@
 
 Phases, each printing its lines:
 
-1. build    builds the CUDA kernels K1 (bsr_spmv) and K2 (bsr_spmm) from
-            src/repro_torch/kernels/csrc and prints the build time;
-2. kernels  holds each kernel against its plain PyTorch version on random
+1. build    builds the CUDA kernels K1 (bsr_spmv), K2 (bsr_spmm) and K3
+            (bsr_sdd) from src/repro_torch/kernels/csrc and prints the build
+            time;
+2. kernels  holds K1 and K2 against their plain PyTorch versions on random
             sorted tile tables (empty row tiles, n not a multiple of bn,
             odd tiles, float32 and bfloat16);
-3. main     drives the port's main path, stage_spmv and stage_spmm
+3. main     drives the port's first path, stage_spmv and stage_spmm
             (n = 128) through the 'cuda' backend, on the paper's
             10 000 x 10 000 matrices <50,50,500,u> and <100,100,500,nu>
             with 20% in-block zeros, in float32 and bfloat16. The launch
@@ -21,7 +22,25 @@ Phases, each printing its lines:
 4. times    medians of CUDA-event timings of each kernel, its plain version
             and torch.sparse_bsr_tensor(...) @ x on the main path's tables,
             each kernel's bound, and each staged fn(val, x), prepacked and
-            not.
+            not;
+5. sdd      holds K3 against its plain version on odd shapes (bm = 8 and
+            others, bn not a multiple of 128, K not a multiple of 32,
+            padding slots, b as a strided expert stack), float32 and
+            bfloat16;
+6. moe      drives the port's second path: DeepSeek-V2-236B's MoE layer at
+            its published widths (d_model 5120, 160 routed experts of
+            d_ff 1536, top-6, 2 shared experts, swiglu), dropless, params
+            in bfloat16 from --seed, through moe_apply at prefill (B=4,
+            S=512) and decode (B=64, S=1). The launch counts are zeroed just
+            before and read just after; K3 and K2 must have launched. The
+            output is held against the capacity path (plain einsums) with
+            capacity_factor = E / top_k, which drops nothing, and K3 on the
+            path's own prefill tables against its plain version on 64
+            sampled slots;
+7. moe times  the MoE layer's time (prefill, decode); K3 at the prefill
+            tables beside its bound, its plain version on the 64-slot sample
+            and torch.sparse.sampled_addmm over the topology's element-level
+            CSR (float32); K2 at the dsd shapes (tm=8, tk=1536, n=5120).
 
 Tolerance: max|out - ref| / max|ref| <= 1e-5 in float32, 2e-2 in bfloat16.
 Any failure raises. The last two lines are the `kernels` JSON object and
@@ -34,6 +53,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 import warnings
 from dataclasses import replace
 from pathlib import Path
@@ -48,6 +68,7 @@ TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 KERNELS = {
     "bsr_spmv": ("src/repro_torch/kernels/csrc/bsr_spmv.cu", "src/repro/kernels/bsr_spmv.py:39"),
     "bsr_spmm": ("src/repro_torch/kernels/csrc/bsr_spmm.cu", "src/repro/kernels/bsr_spmm.py:49"),
+    "bsr_sdd": ("src/repro_torch/kernels/csrc/bsr_sdd.cu", "src/repro/kernels/bsr_ops.py:94"),
 }
 
 
@@ -128,6 +149,296 @@ def phase_kernels(rng, torch, kops, kref):
         check(f"bsr_spmm {tag}", ym, kref.bsr_spmm_ref(t, r, c, xm, m_pad), dtype)
 
 
+def bound_ms(nbytes: int, ops: int, dtype) -> tuple[float, str]:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the dtype's peak, whichever is larger."""
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (ops / PEAK_OPS_PER_S[str(dtype)] * 1e3, "operations"))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_sdd(rng, torch, kops, kref):
+    import numpy as np
+
+    print("phase 5: K3 (bsr_sdd) vs its plain version on the card")
+    cases = [  # (bm, bn, K, dtype)
+        (8, 200, 45, torch.float32),
+        (8, 200, 45, torch.bfloat16),
+        (8, 1536, 5120, torch.bfloat16),
+        (8, 96, 1000, torch.float32),
+        (3, 7, 1, torch.float32),
+        (20, 130, 33, torch.bfloat16),
+        (40, 64, 96, torch.float32),
+        (1, 1, 1, torch.bfloat16),
+    ]
+    dev = torch.device("cuda")
+    for bm, bn, K, dtype in cases:
+        n_rb, n_cb, nnz, pad = 9, 7, 20, 3
+        # sorted slots, then padding slots clamped to (n_rb - 1, 0) as sdd passes them
+        rows = np.concatenate([np.sort(rng.integers(0, n_rb, nnz)), np.full(pad, n_rb - 1)])
+        cols = np.concatenate([rng.integers(0, n_cb, nnz), np.zeros(pad)])
+        r = torch.as_tensor(rows.astype(np.int32), device=dev)
+        c = torch.as_tensor(cols.astype(np.int32), device=dev)
+        a = torch.as_tensor(rng.standard_normal((n_rb * bm, K)), device=dev).to(dtype)
+        w = torch.as_tensor(rng.standard_normal((n_cb, K, bn)), device=dev).to(dtype)
+        stacked = w.permute(1, 0, 2).reshape(K, n_cb * bn)
+        want = kref.bsr_sdd_ref(a, stacked, r, c, bm, bn)
+        tag = f"bm={bm} bn={bn} K={K} {str(dtype)[6:]}"
+        for layout, b in (("stacked", stacked), ("expert stack view", w.permute(1, 0, 2))):
+            out = kops.bsr_sdd(a, b, r, c, bm=bm, bn=bn, device=dev)
+            torch.cuda.synchronize()
+            check(f"bsr_sdd {tag} ({layout}, {pad} padding slots)", out, want, dtype)
+
+
+def moe_configs():
+    from repro_torch.configs.deepseek_v2_236b import full
+
+    cfg = full()
+    mc = cfg.moe
+    dropless = replace(cfg, moe=replace(mc, dropless=True))
+    # capacity_factor = E / top_k gives C >= tokens per group: nothing drops
+    capacity = replace(cfg, moe=replace(mc, capacity_factor=mc.num_experts / mc.top_k))
+    return dropless, capacity
+
+
+def sdd_tables(tmoe, p, x, cfg):
+    """K3's operands on the dropless path, as moe_apply builds them: the
+    (G*E*C, d) buffer, the topology, and the coordinates sdd passes (padding
+    slots clamped)."""
+    r = tmoe._route(p, x, cfg)
+    buf = tmoe._dispatch(x, r, cfg)
+    topo = tmoe._dropless_topology(r.counts, r.C, r.Tg, cfg, cfg.moe.d_ff)
+    rows = topo.row_indices.clamp(max=topo.n_block_rows - 1)
+    cols = topo.column_indices.clamp(max=topo.n_block_cols - 1)
+    return buf.reshape(-1, x.shape[-1]), topo, rows, cols
+
+
+def phase_moe(args, torch, kops, kref):
+    from repro_torch.models import moe as tmoe
+
+    print("phase 6: DeepSeek-V2-236B MoE layer at full width, dropless (bfloat16)")
+    cfg, cfg_cap = moe_configs()
+    mc = cfg.moe
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    p = tmoe.moe_init(gen, cfg, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    print(f"  params: {nbytes(*p.values()) / 1e9:.3f} GB in bfloat16, drawn in "
+          f"{time.perf_counter() - t0:.2f} s (d_model={cfg.d_model} experts={mc.num_experts} "
+          f"top_k={mc.top_k} d_ff={mc.d_ff} shared={mc.num_shared}x{mc.shared_d_ff})")
+    xs = {
+        name: torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        for name, (B, S) in (("prefill", (4, 512)), ("decode", (64, 1)))
+    }
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    outs = {name: tmoe.moe_apply(p, x, cfg) for name, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = dict(kops.launches)
+    print(f"  launches on the MoE path: {launches}")
+    for name in ("bsr_sdd", "bsr_spmm"):
+        if launches[name] == 0:
+            raise AssertionError(f"MoE path never launched {name}")
+    print(f"  peak device memory (dropless): {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    for name, x in xs.items():
+        y, aux = outs[name]
+        if tuple(y.shape) != tuple(x.shape) or not torch.isfinite(y.float()).all():
+            raise AssertionError(f"{name}: output {tuple(y.shape)} is not finite of the "
+                                 f"input's shape {tuple(x.shape)}")
+        y_cap, aux_cap = tmoe.moe_apply(p, x, cfg_cap)
+        check(f"moe {name} B,S={tuple(x.shape[:2])} dropless vs capacity path", y, y_cap,
+              torch.bfloat16)
+        check(f"moe {name} aux loss dropless vs capacity path (float32)", aux, aux_cap,
+              torch.float32)
+        print(f"  moe {name}: aux={float(aux):.6f} |y|max={float(y.abs().max()):.4f}")
+        del y_cap
+    print(f"  peak device memory (with the capacity path): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    a, topo, rows, cols = sdd_tables(tmoe, p, xs["prefill"], cfg)
+    n_valid = int(topo.n_blocks)
+    pick = torch.cat([torch.randperm(n_valid, generator=gen, device=dev)[:60],
+                      torch.arange(n_valid, topo.nnz_max, device=dev)[:4]])
+    w1 = p["w1"].permute(1, 0, 2)
+    bm, bn = topo.block
+    out = kops.bsr_sdd(a, w1, rows[pick], cols[pick], bm=bm, bn=bn, device=dev)
+    want = kref.bsr_sdd_ref(a, w1, rows[pick], cols[pick], bm, bn)
+    check(f"bsr_sdd on the prefill path's tables ({len(pick)} sampled slots of "
+          f"{topo.nnz_max}, {n_valid} valid)", out, want, torch.bfloat16)
+    return tmoe, p, xs, cfg, cfg_cap, launches
+
+
+def phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap):
+    from repro_torch.kernels import _build, bsr_ops
+
+    print(f"phase 7: MoE times (median of {args.reps} calls, CUDA events)")
+    dev = torch.device("cuda")
+    ext = _build.load_kernels()
+    for name, x in xs.items():
+        ms = median_ms(lambda: tmoe.moe_apply(p, x, cfg), args.reps)
+        cap_ms = median_ms(lambda: tmoe.moe_apply(p, x, cfg_cap), args.reps)
+        print(f"  moe_apply {name} B,S={tuple(x.shape[:2])}: dropless ms={ms:.4f} "
+              f"capacity-path ms={cap_ms:.4f}")
+        device_breakdown(torch, f"moe_apply {name} dropless", lambda: tmoe.moe_apply(p, x, cfg))
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
+    stack_ms = median_ms(lambda: p["w1"].permute(1, 0, 2).reshape(d, E * f), args.reps)
+    print(f"  not on the path: stacking w1 into (d, E*f) as the reference does per call "
+          f"ms={stack_ms:.4f} (x2 with w3); K3 reads the expert stack in place")
+
+    a, topo, rows, cols = sdd_tables(tmoe, p, xs["prefill"], cfg)
+    bm, bn = topo.block
+    K = a.shape[1]
+    nnz, n_valid = topo.nnz_max, int(topo.n_blocks)
+    w1 = p["w1"].permute(1, 0, 2)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    pick = torch.randperm(n_valid, generator=gen, device=dev)[:64]
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        a_t, w_t = a.to(dtype), w1.to(dtype)  # float32: copies of the path's inputs
+        out = torch.empty((nnz, bm, bn), dtype=dtype, device=dev)
+        launch = lambda: ext.bsr_sdd(a_t, w_t, rows, cols, out)  # noqa: E731
+        launch()
+        sample = (rows[pick], cols[pick])
+        plain = lambda: kref.bsr_sdd_ref(a_t, w_t, *sample, bm, bn)  # noqa: E731
+        err = check(f"bsr_sdd {str(dtype)[6:]} prefill tables (64 sampled slots) kernel vs "
+                    f"plain", out[pick], plain(), dtype)
+        ms = median_ms(launch, args.reps)
+        out_s = torch.empty((64, bm, bn), dtype=dtype, device=dev)
+        sample_ms = median_ms(lambda: ext.bsr_sdd(a_t, w_t, *sample, out_s), args.reps)
+        plain_ms = median_ms(plain, args.reps)
+        # each slot's a rows and each expert's weight block read once
+        n_a = int(torch.unique(rows).numel())
+        n_b = int(torch.unique(cols).numel())
+        es = a_t.element_size()
+        need = (n_a * bm * K + n_b * K * bn + nnz * bm * bn) * es + nbytes(rows, cols)
+        ops = 2 * nnz * bm * bn * K
+        b_ms, b_by = bound_ms(need, ops, dtype)
+        lib_ms, lib_txt = None, "n/a (bfloat16: the library call takes float32)"
+        if dtype == torch.float32:
+            lib_ms, lib_txt = sdd_library(torch, a_t, w_t, topo, out, n_valid, args.reps)
+        print(f"  bsr_sdd prefill {str(dtype)[6:]}: slots={nnz} ({n_valid} valid) "
+              f"bm={bm} bn={bn} K={K} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {need} B, "
+              f"{ops} ops) roofline_share={b_ms / ms:.3f}; on the 64-slot sample: "
+              f"ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; library_ms={lib_txt}")
+        records[str(dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=lib_ms)
+        del a_t, w_t, out, out_s
+
+    # K2 at the dsd shapes: the activations h against the stacked w2
+    h = bsr_ops.sdd(a, w1, topo)
+    g = bsr_ops.sdd(a, p["w3"].permute(1, 0, 2), topo)
+    tiles = h.with_data(torch.nn.functional.silu(h.data) * g.data).data.contiguous()
+    del h, g
+    x2 = p["w2"].reshape(E * f, d)
+    Rb = topo.n_block_rows
+    m_pad = (Rb + 1) * bm
+    rptr = kops.row_ptr_from_ids(topo.row_indices, Rb + 1)
+    y = torch.empty((m_pad, d), dtype=x2.dtype, device=dev)
+    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y, 128)  # noqa: E731
+    ms = median_ms(launch, args.reps)
+    ys = torch.empty((m_pad, d), dtype=x2.dtype, device=dev)
+    sel = torch.sort(pick).values
+    s_tiles, s_rows, s_cols = tiles[sel].contiguous(), topo.row_indices[sel], cols[sel]
+    s_ptr = kops.row_ptr_from_ids(s_rows, Rb + 1)
+    ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys, 128)
+    plain = lambda: kref.bsr_spmm_ref(s_tiles, s_rows, s_cols, x2, m_pad)  # noqa: E731
+    err = check("bsr_spmm dsd shapes (64 sampled slots) kernel vs plain", ys, plain(),
+                torch.bfloat16)
+    sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys, 128), args.reps)
+    plain_ms = median_ms(plain, args.reps)
+    n_b = int(torch.unique(cols).numel())
+    need = nbytes(tiles, rptr, cols, y) + n_b * f * d * x2.element_size()
+    ops = 2 * tiles.numel() * d
+    b_ms, b_by = bound_ms(need, ops, x2.dtype)
+    lib_txt = dsd_library(torch, tiles, topo, cols, x2, args.reps)
+    print(f"  bsr_spmm dsd bfloat16: tiles={tiles.shape[0]} tm={bm} tk={bn} n={d} "
+          f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {need} B, {ops} ops) "
+          f"roofline_share={b_ms / ms:.3f}; on the 64-slot sample: ms={sample_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} (max_abs_err={err:.3e}); library_ms={lib_txt}")
+    return records
+
+
+def device_breakdown(torch, label, fn, top=6):
+    """One call under torch.profiler: the device time by kernel (exclusive
+    times, largest first) and the device's busy share of the call's wall
+    time (which the profiler's own overhead inflates), or "not measured"
+    if the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():  # the profiler's notice about event cycles
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.key, e.count))
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        print(f"  profile {label}: device time not measured (the profiler saw none)")
+        return
+    rows.sort(reverse=True)
+    parts = "; ".join(f"{k[:60]} x{n} {t:.3f} ms" for t, k, n in rows[:top])
+    print(f"  profile {label}: device busy {busy:.3f} of {wall_ms:.3f} ms wall "
+          f"(share {busy / wall_ms:.3f}); by kernel: {parts}")
+
+
+def sdd_library(torch, a, w, topo, out, n_valid, reps):
+    """torch.sparse.sampled_addmm over the topology's element-level CSR, in
+    float32, held against K3's blocks. (ms or None, text)."""
+    try:
+        bm, bn = topo.block
+        dev = a.device
+        r = topo.row_indices[:n_valid].long()
+        c = topo.column_indices[:n_valid].long()
+        if int((topo.offsets[1:] - topo.offsets[:-1]).max()) > 1:
+            raise ValueError("a block row with two blocks: CSR order differs from slot order")
+        m, j = torch.arange(bm, device=dev), torch.arange(bn, device=dev)
+        er = (r[:, None, None] * bm + m[None, :, None]).expand(-1, bm, bn)
+        ec = (c[:, None, None] * bn + j[None, None, :]).expand(-1, bm, bn)
+        idx = torch.stack([er.reshape(-1), ec.reshape(-1)])
+        stacked = w.reshape(w.shape[0], -1)  # (K, E*bn), a float32 copy
+        pattern = torch.sparse_coo_tensor(
+            idx, torch.ones(idx.shape[1], device=dev), (a.shape[0], stacked.shape[1]),
+        ).coalesce().to_sparse_csr()
+        del idx, er, ec
+        call = lambda: torch.sparse.sampled_addmm(pattern, a, stacked, beta=0.0)  # noqa: E731
+        res = call()
+        check("sampled_addmm vs bsr_sdd (float32, valid slots)",
+              res.values().reshape(n_valid, bm, bn), out[:n_valid], torch.float32)
+        ms = median_ms(call, reps)
+        return ms, f"{ms:.4f}"
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        return None, f"n/a ({type(e).__name__}: {str(e).splitlines()[0][:200]})"
+
+
+def dsd_library(torch, tiles, topo, cols, x, reps):
+    """torch.sparse_bsr_tensor(...) @ x in float32 at the dsd shapes, or
+    n/a with the error this install gives."""
+    try:
+        n_valid = int(topo.n_blocks)
+        bsr = torch.sparse_bsr_tensor(topo.offsets, cols[:n_valid], tiles[:n_valid].float(),
+                                      size=topo.shape)
+        x32 = x.float()
+        ms = median_ms(lambda: bsr @ x32, reps)
+        return f"{ms:.4f}"
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        return f"n/a ({type(e).__name__}: {str(e).splitlines()[0][:200]})"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -200,8 +511,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(kops.launches)
     print(f"  launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("bsr_spmv", "bsr_spmm"):
+        if launches[name] == 0:
             raise AssertionError(f"main path never launched {name}")
 
     for (name, dtype, ks, km, val, x, X), (y, ym) in zip(runs, outs):
@@ -280,12 +591,22 @@ def main() -> int:
             print(f"  stage_{kind} {tag}: fn(val, x) ms={call_ms:.4f} prepacked ms={packed_ms:.4f}")
             del kp, packed
 
+    # -- phases 5-7 --------------------------------------------------------
+    del runs, outs
+    torch.cuda.empty_cache()
+    phase_sdd(rng, torch, kops, kref)
+    tmoe, p, xs, cfg, cfg_cap, moe_launches = phase_moe(args, torch, kops, kref)
+    sdd_records = phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap)
+
+    # K1, K2: u float32 on the first path; K3: float32 at the MoE prefill tables
+    final = {k: (records[(k, "u", "torch.float32")], launches[k])
+             for k in ("bsr_spmv", "bsr_spmm")}
+    final["bsr_sdd"] = (sdd_records["torch.float32"], moe_launches["bsr_sdd"])
     summary = []
     for kname, (source, replaces) in KERNELS.items():
-        rec = records[(kname, "u", "torch.float32")]
+        rec, n = final[kname]
         summary.append(dict(
-            name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], **rec,
+            name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
         ))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ from pathlib import Path
 __all__ = ["load_kernels", "build_seconds"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("binding.cpp", "bsr_spmv.cu", "bsr_spmm.cu")
+_SOURCES = ("binding.cpp", "bsr_spmv.cu", "bsr_spmm.cu", "bsr_sdd.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 _CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-Xptxas=-v"]
 
@@ -26,7 +26,7 @@ _build_seconds = None
 
 
 def load_kernels(verbose: bool = False):
-    """The compiled extension (``bsr_spmv``, ``bsr_spmm``); builds it once."""
+    """The compiled extension (``bsr_spmv``, ``bsr_spmm``, ``bsr_sdd``); builds it once."""
     global _module, _build_seconds
     if _module is None:
         from torch.utils.cpp_extension import load

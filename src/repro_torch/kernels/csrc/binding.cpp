@@ -10,6 +10,9 @@ void bsr_spmv_launch(const void* tiles, const int* row_ptr, const int* col_ids, 
 void bsr_spmm_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
                      void* y, int n_row_tiles, int tm, int tk, int n, int bn, bool bf16,
                      cudaStream_t stream);
+void bsr_sdd_launch(const void* a, const void* b, const int* rows, const int* cols, void* out,
+                    int nnz, int bm, int bn, int K, int64_t b_stride_k, int64_t b_stride_c,
+                    bool bf16, cudaStream_t stream);
 
 namespace {
 
@@ -63,9 +66,46 @@ void bsr_spmm(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
                   tiles.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
 }
 
+// a (M, K); b the (K, N / bn, bn) block-column view of the (K, N) operand,
+// any strides with a unit last one; rows, cols (nnz,) int32 in bounds;
+// out (nnz, bm, bn).
+void bsr_sdd(torch::Tensor a, torch::Tensor b, torch::Tensor rows, torch::Tensor cols,
+             torch::Tensor out) {
+  for (const torch::Tensor* t : {&a, &b, &rows, &cols, &out}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == a.device(),
+                "all operands must lie on one CUDA device");
+  }
+  for (const torch::Tensor* t : {&a, &rows, &cols, &out}) {
+    TORCH_CHECK(t->is_contiguous(), "a, rows, cols and out must be contiguous");
+  }
+  TORCH_CHECK(a.scalar_type() == at::kFloat || a.scalar_type() == at::kBFloat16,
+              "a must be float32 or bfloat16");
+  TORCH_CHECK(b.scalar_type() == a.scalar_type() && out.scalar_type() == a.scalar_type(),
+              "a, b and out must share one dtype");
+  TORCH_CHECK(rows.scalar_type() == at::kInt && cols.scalar_type() == at::kInt,
+              "rows and cols must be int32");
+  TORCH_CHECK(a.dim() == 2 && a.size(1) >= 1, "a must be (M, K) with K >= 1");
+  TORCH_CHECK(out.dim() == 3 && out.size(1) >= 1 && out.size(2) >= 1, "out must be (nnz, bm, bn)");
+  const int64_t nnz = out.size(0), bm = out.size(1), bn = out.size(2), K = a.size(1);
+  TORCH_CHECK(a.size(0) % bm == 0, "a's rows must be a multiple of bm");
+  TORCH_CHECK(b.dim() == 3 && b.size(0) == K && b.size(2) == bn && b.stride(2) == 1,
+              "b must be a (K, N / bn, bn) view with unit last stride");
+  TORCH_CHECK(rows.dim() == 1 && rows.size(0) == nnz && cols.dim() == 1 && cols.size(0) == nnz,
+              "rows and cols must be (nnz,)");
+  TORCH_CHECK(nnz * ((bm + 31) / 32) * ((bn + 127) / 128) < (int64_t{1} << 31) &&
+                  K < (int64_t{1} << 31),
+              "too many slots for one launch");
+  const c10::cuda::CUDAGuard guard(a.device());
+  bsr_sdd_launch(a.data_ptr(), b.data_ptr(), rows.data_ptr<int>(), cols.data_ptr<int>(),
+                 out.data_ptr(), static_cast<int>(nnz), static_cast<int>(bm),
+                 static_cast<int>(bn), static_cast<int>(K), b.stride(0), b.stride(1),
+                 a.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bsr_spmv", &bsr_spmv, "K1: block-sparse SpMV into y (launches on the current stream)");
   m.def("bsr_spmm", &bsr_spmm, "K2: block-sparse SpMM into y (launches on the current stream)");
+  m.def("bsr_sdd", &bsr_sdd, "K3: sampled dense-dense blocks into out (launches on the current stream)");
 }

@@ -6,7 +6,8 @@ be numpy arrays or tensors; tensors must already lie on ``device``. On a CUDA
 device the wrapper checks dtype, shape and contiguity, allocates the output
 with ``torch.empty`` and launches the hand-written kernel on the current
 stream: there is no fallback, and what the kernel does not take raises. On
-the CPU it runs the plain PyTorch version in ``ref.py``.
+the CPU it runs the plain PyTorch version in ``ref.py``. ``bsr_sdd`` wraps
+the reference's ``bsr_ops._sdd_pallas`` in the same way.
 
 ``launches`` counts the kernel launches of each wrapper, so a caller can show
 that a path went through the kernels.
@@ -18,9 +19,9 @@ import torch
 from ..device import on_device as _on, resolve_device
 from . import ref
 
-__all__ = ["bsr_spmm", "bsr_spmv", "launches", "reset_launches", "row_ptr_from_ids"]
+__all__ = ["bsr_sdd", "bsr_spmm", "bsr_spmv", "launches", "reset_launches", "row_ptr_from_ids"]
 
-launches = {"bsr_spmv": 0, "bsr_spmm": 0}
+launches = {"bsr_spmv": 0, "bsr_spmm": 0, "bsr_sdd": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -105,3 +106,46 @@ def bsr_spmm(tiles, row_ids, col_ids, x, *, m_pad, bn=128, row_ptr=None, device=
         load_kernels().bsr_spmm(tiles, row_ptr, col_ids, x, y, kernel_bn)
         launches["bsr_spmm"] += 1
     return y
+
+
+def bsr_sdd(a, b, rows, cols, *, bm, bn, device=None):
+    """Sampled dense-dense product: (nnz, bm, bn) blocks of ``a @ b``,
+    ``out[i] = a[rows[i]*bm:+bm, :] @ b[:, cols[i]*bn:+bn]``.
+
+    ``a`` is (M, K) and contiguous. ``b`` is (K, N), contiguous, or its
+    block-column view (K, N // bn, bn) with any strides but a unit last one:
+    a stack of per-column-block weights ``w (Cb, K, bn)`` is passed as
+    ``w.permute(1, 0, 2)``, the stacked (K, Cb * bn) matrix without a copy.
+    ``rows`` and ``cols`` must be in bounds (``bsr_ops.sdd`` clamps padding
+    slots' coordinates). Slots are launched in slot order.
+    """
+    dev = resolve_device(device)
+    a, b = _on(a, dev), _on(b, dev)
+    rows = _on(rows, dev, torch.int32)
+    cols = _on(cols, dev, torch.int32)
+    if a.dim() != 2 or a.shape[0] % bm or a.shape[1] < 1:
+        raise ValueError(f"a must be (M, K) with M % bm == 0 and K >= 1, got {tuple(a.shape)}")
+    K = a.shape[1]
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"a and b must share float32 or bfloat16, got {a.dtype}, {b.dtype}")
+    if b.dim() == 2 and b.shape[0] == K and b.shape[1] % bn == 0 and b.is_contiguous():
+        b = b.view(K, -1, bn)
+    elif not (b.dim() == 3 and b.shape[0] == K and b.shape[2] == bn and b.stride(2) == 1):
+        raise ValueError(
+            f"b must be contiguous (K={K}, N) with N % bn == 0, or a (K, N // bn, bn={bn}) "
+            f"view with unit last stride; got {tuple(b.shape)} strides {b.stride()}"
+        )
+    if not a.is_contiguous():
+        raise ValueError("a must be contiguous")
+    nnz = rows.shape[0]
+    if rows.shape != (nnz,) or cols.shape != (nnz,):
+        raise ValueError("rows and cols must be (nnz,)")
+    if dev.type == "cpu":
+        return ref.bsr_sdd_ref(a, b, rows, cols, bm, bn)
+    out = torch.empty((nnz, bm, bn), dtype=a.dtype, device=dev)
+    if nnz:
+        from ._build import load_kernels
+
+        load_kernels().bsr_sdd(a, b, rows, cols, out)
+        launches["bsr_sdd"] += 1
+    return out

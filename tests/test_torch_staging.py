@@ -209,6 +209,6 @@ def test_cuda_main_path_launches_both_kernels():
     tops.reset_launches()
     y = stage_spmv(v, opts)(f["val"], f["x"])
     ym = stage_spmm(v, 6, opts)(f["val"], f["X"])
-    assert tops.launches == {"bsr_spmv": 1, "bsr_spmm": 1}
+    assert tops.launches == {"bsr_spmv": 1, "bsr_spmm": 1, "bsr_sdd": 0}
     np.testing.assert_allclose(y.cpu().numpy(), f["y_spmv"], rtol=TOL, atol=TOL)
     np.testing.assert_allclose(ym.cpu().numpy(), f["y_spmm"], rtol=TOL, atol=TOL)
