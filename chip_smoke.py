@@ -9,8 +9,13 @@ Phases, each printing its lines:
             (bsr_sdd) from src/repro_torch/kernels/csrc and prints the build
             time;
 2. kernels  holds K1 and K2 against their plain PyTorch versions on random
-            sorted tile tables (empty row tiles, n not a multiple of bn,
-            odd tiles, float32 and bfloat16);
+            sorted tile tables (empty row tiles, n not a multiple of the
+            column block, odd tiles, float32 and bfloat16) and on tables
+            made of runs of 1-9 row tiles sharing a column tile, as the
+            MoE's dsd makes them (runs across a 64-row panel, two runs into
+            one row tile, padding tiles past the last row tile, tm = 5, 8,
+            16, 32, and in bfloat16 40 and 100, where a CTA takes 64 rows
+            of one tile);
 3. main     drives the port's first path, stage_spmv and stage_spmm
             (n = 128) through the 'cuda' backend, on the paper's
             10 000 x 10 000 matrices <50,50,500,u> and <100,100,500,nu>
@@ -20,13 +25,17 @@ Phases, each printing its lines:
             backend and a dense product, both in float32 with TF32 off, on
             the inputs the kernels saw;
 4. times    medians of CUDA-event timings of each kernel, its plain version
-            and torch.sparse_bsr_tensor(...) @ x on the main path's tables,
-            each kernel's bound, and each staged fn(val, x), prepacked and
-            not;
+            and torch.sparse_bsr_tensor(...) @ x (in the row's dtype, its
+            error against the plain version printed beside it; "n/a" with
+            the error where this install refuses it) on the main path's
+            tables, each kernel's bound, and each staged fn(val, x),
+            prepacked and not;
 5. sdd      holds K3 against its plain version on odd shapes (bm = 8 and
             others, bn not a multiple of 128, K not a multiple of 32,
-            padding slots, b as a strided expert stack), float32 and
-            bfloat16;
+            padding slots with out-of-range columns, b as a strided expert
+            stack), on random slots and on runs of 1-9 slots of one column
+            block (runs across a CTA's group of slots), float32 and
+            bfloat16 (bm = 40 and 100 too);
 6. moe      drives the port's second path: DeepSeek-V2-236B's MoE layer at
             its published widths (d_model 5120, 160 routed experts of
             d_ff 1536, top-6, 2 shared experts, swiglu), dropless, params
@@ -37,10 +46,16 @@ Phases, each printing its lines:
             capacity_factor = E / top_k, which drops nothing, and K3 on the
             path's own prefill tables against its plain version on 64
             sampled slots;
-7. moe times  the MoE layer's time (prefill, decode); K3 at the prefill
-            tables beside its bound, its plain version on the 64-slot sample
-            and torch.sparse.sampled_addmm over the topology's element-level
-            CSR (float32); K2 at the dsd shapes (tm=8, tk=1536, n=5120).
+7. moe times  the MoE layer's time (prefill, decode) and its device time by
+            kernel; at the prefill and decode tables as the path builds
+            them, K3 (bfloat16; float32 too at prefill) and K2 at the dsd
+            tables (tm=8, tk=1536, n=5120, m_pad = M), each beside its
+            bound, its plain version (K3 on 64 sampled slots, K2 on the
+            tiles of 16 whole 64-row panels, each against the timed launch's
+            own output) and the library call in the kernel's dtype:
+            torch.sparse.sampled_addmm (K3) and torch.sparse_csr_tensor(...)
+            @ x (K2, cuSPARSE; in float32 too), each over the element-level
+            CSR.
 
 Tolerance: max|out - ref| / max|ref| <= 1e-5 in float32, 2e-2 in bfloat16.
 Any failure raises. The last two lines are the `kernels` JSON object and
@@ -89,6 +104,33 @@ def check(label: str, out, ref, dtype) -> float:
     return err
 
 
+def library_time(label, make, want, dtype, reps, select=lambda y: y):
+    """A library call that computes a kernel's function, timed as its
+    yardstick: ``make()`` builds the library's operands and returns the
+    call. Its result (through ``select``) is compared with ``want``, and the
+    error printed beside the time with a note where it exceeds the dtype's
+    tolerance (the library's own precision, not a failure of the port).
+    Returns (ms or None, text): None, with the error, where this install
+    refuses the call."""
+    import torch
+
+    try:
+        call = make()
+        got = select(call())
+        torch.cuda.synchronize()
+    except Exception as e:  # any refusal is the finding: record it
+        txt = f"n/a ({type(e).__name__}: {(str(e).splitlines() or [''])[0][:200]})"
+        print(f"  {label}: {txt}")
+        return None, txt
+    err, rel = rel_err(got, want)
+    del got
+    ms = median_ms(call, reps)
+    tol = TOL[str(dtype)]
+    note = "" if rel <= tol else f", less precise than the kernels' tolerance {tol:g}"
+    print(f"  {label}: ms={ms:.4f} vs plain: max_abs_err={err:.3e} rel={rel:.3e}{note}")
+    return ms, f"{ms:.4f}"
+
+
 def median_ms(fn, reps: int) -> float:
     """Median of per-call CUDA-event times, after two warm-up calls."""
     import torch
@@ -121,20 +163,41 @@ def random_tables(rng, n_row_tiles, n_col_tiles, nb, tm, tk, empty_rows):
 
 
 def phase_kernels(rng, torch, kops, kref):
+    import numpy as np
+
+    from repro_torch.kernels import testing
+
     print("phase 2: kernels vs plain versions on the card")
-    cases = [  # (tm, tk, n, bn, dtype)
-        (32, 32, 128, 128, torch.float32),
-        (32, 32, 100, 128, torch.bfloat16),
-        (8, 128, 70, 64, torch.float32),
-        (5, 7, 33, 32, torch.float32),
-        (16, 12, 6, 128, torch.bfloat16),
-        (40, 3, 129, 128, torch.float32),
-        (1, 1, 1, 128, torch.float32),
+    cases = [  # (tables, tm, tk, n, dtype)
+        ("random", 32, 32, 128, torch.float32),
+        ("random", 32, 32, 100, torch.bfloat16),
+        ("random", 8, 128, 70, torch.float32),
+        ("random", 5, 7, 33, torch.float32),
+        ("random", 16, 12, 6, torch.bfloat16),
+        ("random", 40, 3, 129, torch.float32),
+        ("random", 40, 32, 129, torch.bfloat16),  # one row tile to a bfloat16 CTA
+        ("random", 100, 16, 72, torch.bfloat16),  # two CTAs to a row tile, one ragged
+        ("random", 1, 1, 1, torch.float32),
+        ("runs", 8, 1536, 200, torch.bfloat16),
+        ("runs", 8, 40, 136, torch.float32),
+        ("runs", 16, 24, 100, torch.bfloat16),
+        ("runs", 16, 24, 100, torch.float32),
+        ("runs", 32, 32, 128, torch.bfloat16),
+        ("runs", 5, 16, 72, torch.bfloat16),
+        ("runs", 5, 7, 33, torch.float32),
+        ("runs", 40, 24, 100, torch.bfloat16),
+        ("runs", 100, 16, 136, torch.bfloat16),
     ]
     dev = torch.device("cuda")
-    for tm, tk, n, bn, dtype in cases:
-        n_rt, n_ct = 23, 9
-        tiles, rows, cols = random_tables(rng, n_rt, n_ct, 60, tm, tk, empty_rows=4)
+    for kind, tm, tk, n, dtype in cases:
+        n_ct = 9
+        if kind == "random":
+            n_rt = 23
+            tiles, rows, cols = random_tables(rng, n_rt, n_ct, 60, tm, tk, empty_rows=4)
+        else:
+            rows, cols, n_rt = testing.run_tables(rng, n_ct, pad=5)
+            tiles = rng.standard_normal((len(rows), tm, tk)).astype(np.float32)
+            tiles[rows == n_rt] = 0  # padding holds zeros, as BlockMatrix's does
         t = torch.as_tensor(tiles, device=dev).to(dtype)
         r = torch.as_tensor(rows, device=dev)
         c = torch.as_tensor(cols, device=dev)
@@ -142,9 +205,9 @@ def phase_kernels(rng, torch, kops, kref):
         xm = torch.as_tensor(rng.standard_normal((n_ct * tk, n)), device=dev).to(dtype)
         m_pad = n_rt * tm
         y = kops.bsr_spmv(t, r, c, x, m_pad=m_pad, device=dev)
-        ym = kops.bsr_spmm(t, r, c, xm, m_pad=m_pad, bn=bn, device=dev)
+        ym = kops.bsr_spmm(t, r, c, xm, m_pad=m_pad, device=dev)
         torch.cuda.synchronize()
-        tag = f"tm={tm} tk={tk} n={n} bn={bn} {str(dtype)[6:]}"
+        tag = f"{kind} tables tm={tm} tk={tk} n={n} {str(dtype)[6:]}"
         check(f"bsr_spmv {tag}", y, kref.bsr_spmv_ref(t, r, c, x, m_pad), dtype)
         check(f"bsr_spmm {tag}", ym, kref.bsr_spmm_ref(t, r, c, xm, m_pad), dtype)
 
@@ -163,30 +226,46 @@ def nbytes(*tensors) -> int:
 def phase_sdd(rng, torch, kops, kref):
     import numpy as np
 
+    from repro_torch.kernels import testing
+
     print("phase 5: K3 (bsr_sdd) vs its plain version on the card")
-    cases = [  # (bm, bn, K, dtype)
-        (8, 200, 45, torch.float32),
-        (8, 200, 45, torch.bfloat16),
-        (8, 1536, 5120, torch.bfloat16),
-        (8, 96, 1000, torch.float32),
-        (3, 7, 1, torch.float32),
-        (20, 130, 33, torch.bfloat16),
-        (40, 64, 96, torch.float32),
-        (1, 1, 1, torch.bfloat16),
+    cases = [  # (slots, bm, bn, K, dtype)
+        ("random", 8, 200, 45, torch.float32),
+        ("random", 8, 200, 45, torch.bfloat16),
+        ("random", 8, 1536, 5120, torch.bfloat16),
+        ("random", 8, 96, 1000, torch.float32),
+        ("random", 3, 7, 1, torch.float32),
+        ("random", 20, 130, 33, torch.bfloat16),
+        ("random", 40, 64, 96, torch.float32),
+        ("random", 40, 64, 96, torch.bfloat16),  # one slot to a bfloat16 CTA
+        ("random", 100, 136, 40, torch.bfloat16),  # two CTAs to a slot, one ragged
+        ("random", 1, 1, 1, torch.bfloat16),
+        ("runs", 8, 1536, 512, torch.bfloat16),
+        ("runs", 8, 200, 45, torch.float32),
+        ("runs", 16, 136, 96, torch.bfloat16),
+        ("runs", 32, 130, 64, torch.bfloat16),
+        ("runs", 32, 130, 64, torch.float32),
+        ("runs", 5, 72, 40, torch.bfloat16),
+        ("runs", 40, 136, 96, torch.bfloat16),
+        ("runs", 100, 72, 40, torch.bfloat16),
     ]
     dev = torch.device("cuda")
-    for bm, bn, K, dtype in cases:
-        n_rb, n_cb, nnz, pad = 9, 7, 20, 3
-        # sorted slots, then padding slots clamped to (n_rb - 1, 0) as sdd passes them
-        rows = np.concatenate([np.sort(rng.integers(0, n_rb, nnz)), np.full(pad, n_rb - 1)])
-        cols = np.concatenate([rng.integers(0, n_cb, nnz), np.zeros(pad)])
+    for kind, bm, bn, K, dtype in cases:
+        n_cb, pad = 7, 3
+        if kind == "random":
+            n_rb, nnz = 9, 20
+            # sorted slots, then padding slots (row n_rb, col 0) as BlockMatrix pads
+            rows = np.concatenate([np.sort(rng.integers(0, n_rb, nnz)), np.full(pad, n_rb)])
+            cols = np.concatenate([rng.integers(0, n_cb, nnz), np.zeros(pad)])
+        else:
+            rows, cols, n_rb = testing.run_slots(rng, n_cb, pad)
         r = torch.as_tensor(rows.astype(np.int32), device=dev)
         c = torch.as_tensor(cols.astype(np.int32), device=dev)
         a = torch.as_tensor(rng.standard_normal((n_rb * bm, K)), device=dev).to(dtype)
         w = torch.as_tensor(rng.standard_normal((n_cb, K, bn)), device=dev).to(dtype)
         stacked = w.permute(1, 0, 2).reshape(K, n_cb * bn)
         want = kref.bsr_sdd_ref(a, stacked, r, c, bm, bn)
-        tag = f"bm={bm} bn={bn} K={K} {str(dtype)[6:]}"
+        tag = f"{kind} slots bm={bm} bn={bn} K={K} {str(dtype)[6:]}"
         for layout, b in (("stacked", stacked), ("expert stack view", w.permute(1, 0, 2))):
             out = kops.bsr_sdd(a, b, r, c, bm=bm, bn=bn, device=dev)
             torch.cuda.synchronize()
@@ -207,13 +286,11 @@ def moe_configs():
 def sdd_tables(tmoe, p, x, cfg):
     """K3's operands on the dropless path, as moe_apply builds them: the
     (G*E*C, d) buffer, the topology, and the coordinates sdd passes (padding
-    slots clamped)."""
+    slots at row n_block_rows, which K3 writes as zero blocks)."""
     r = tmoe._route(p, x, cfg)
     buf = tmoe._dispatch(x, r, cfg)
     topo = tmoe._dropless_topology(r.counts, r.C, r.Tg, cfg, cfg.moe.d_ff)
-    rows = topo.row_indices.clamp(max=topo.n_block_rows - 1)
-    cols = topo.column_indices.clamp(max=topo.n_block_cols - 1)
-    return buf.reshape(-1, x.shape[-1]), topo, rows, cols
+    return buf.reshape(-1, x.shape[-1]), topo, topo.row_indices, topo.column_indices
 
 
 def phase_moe(args, torch, kops, kref):
@@ -262,8 +339,7 @@ def phase_moe(args, torch, kops, kref):
 
     a, topo, rows, cols = sdd_tables(tmoe, p, xs["prefill"], cfg)
     n_valid = int(topo.n_blocks)
-    pick = torch.cat([torch.randperm(n_valid, generator=gen, device=dev)[:60],
-                      torch.arange(n_valid, topo.nnz_max, device=dev)[:4]])
+    pick = sample_slots(torch, topo, args.seed)
     w1 = p["w1"].permute(1, 0, 2)
     bm, bn = topo.block
     out = kops.bsr_sdd(a, w1, rows[pick], cols[pick], bm=bm, bn=bn, device=dev)
@@ -274,11 +350,7 @@ def phase_moe(args, torch, kops, kref):
 
 
 def phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap):
-    from repro_torch.kernels import _build, bsr_ops
-
     print(f"phase 7: MoE times (median of {args.reps} calls, CUDA events)")
-    dev = torch.device("cuda")
-    ext = _build.load_kernels()
     for name, x in xs.items():
         ms = median_ms(lambda: tmoe.moe_apply(p, x, cfg), args.reps)
         cap_ms = median_ms(lambda: tmoe.moe_apply(p, x, cfg_cap), args.reps)
@@ -289,78 +361,137 @@ def phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap):
     stack_ms = median_ms(lambda: p["w1"].permute(1, 0, 2).reshape(d, E * f), args.reps)
     print(f"  not on the path: stacking w1 into (d, E*f) as the reference does per call "
           f"ms={stack_ms:.4f} (x2 with w3); K3 reads the expert stack in place")
+    records = {}
+    for name, x in xs.items():
+        a, topo, rows, cols = sdd_tables(tmoe, p, x, cfg)
+        dtypes = (torch.bfloat16, torch.float32) if name == "prefill" else (torch.bfloat16,)
+        for dtype in dtypes:
+            records[("bsr_sdd", name, str(dtype))] = time_sdd(args, torch, kref, p, a, topo,
+                                                              name, dtype)
+        records[("bsr_spmm", name, "torch.bfloat16")] = time_dsd(args, torch, kops, kref, p,
+                                                                 a, topo, name)
+        del a, topo, rows, cols
+        torch.cuda.empty_cache()
+    return records
 
-    a, topo, rows, cols = sdd_tables(tmoe, p, xs["prefill"], cfg)
+
+def sample_slots(torch, topo, seed, n=60, n_pad=4):
+    """Sorted slot indices: ``n`` random valid slots and up to ``n_pad``
+    padding slots, for the plain versions (which cannot hold a float32
+    gather of every slot at these widths)."""
+    dev = topo.row_indices.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_valid = int(topo.n_blocks)
+    pick = torch.cat([torch.randperm(n_valid, generator=gen, device=dev)[:n],
+                      torch.arange(n_valid, topo.nnz_max, device=dev)[:n_pad]])
+    return torch.sort(pick).values
+
+
+def time_sdd(args, torch, kref, p, a, topo, name, dtype):
+    """K3 at the path's tables (all slots, padding included) beside its
+    bound, its plain version on sampled slots and the library call, each in
+    ``dtype``."""
+    from repro_torch.kernels import _build
+
+    ext = _build.load_kernels()
+    dev = a.device
     bm, bn = topo.block
     K = a.shape[1]
+    rows, cols = topo.row_indices, topo.column_indices
     nnz, n_valid = topo.nnz_max, int(topo.n_blocks)
-    w1 = p["w1"].permute(1, 0, 2)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    pick = torch.randperm(n_valid, generator=gen, device=dev)[:64]
-    records = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        a_t, w_t = a.to(dtype), w1.to(dtype)  # float32: copies of the path's inputs
-        out = torch.empty((nnz, bm, bn), dtype=dtype, device=dev)
-        launch = lambda: ext.bsr_sdd(a_t, w_t, rows, cols, out)  # noqa: E731
-        launch()
-        sample = (rows[pick], cols[pick])
-        plain = lambda: kref.bsr_sdd_ref(a_t, w_t, *sample, bm, bn)  # noqa: E731
-        err = check(f"bsr_sdd {str(dtype)[6:]} prefill tables (64 sampled slots) kernel vs "
-                    f"plain", out[pick], plain(), dtype)
-        ms = median_ms(launch, args.reps)
-        out_s = torch.empty((64, bm, bn), dtype=dtype, device=dev)
-        sample_ms = median_ms(lambda: ext.bsr_sdd(a_t, w_t, *sample, out_s), args.reps)
-        plain_ms = median_ms(plain, args.reps)
-        # each slot's a rows and each expert's weight block read once
-        n_a = int(torch.unique(rows).numel())
-        n_b = int(torch.unique(cols).numel())
-        es = a_t.element_size()
-        need = (n_a * bm * K + n_b * K * bn + nnz * bm * bn) * es + nbytes(rows, cols)
-        ops = 2 * nnz * bm * bn * K
-        b_ms, b_by = bound_ms(need, ops, dtype)
-        lib_ms, lib_txt = None, "n/a (bfloat16: the library call takes float32)"
-        if dtype == torch.float32:
-            lib_ms, lib_txt = sdd_library(torch, a_t, w_t, topo, out, n_valid, args.reps)
-        print(f"  bsr_sdd prefill {str(dtype)[6:]}: slots={nnz} ({n_valid} valid) "
-              f"bm={bm} bn={bn} K={K} ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {need} B, "
-              f"{ops} ops) roofline_share={b_ms / ms:.3f}; on the 64-slot sample: "
-              f"ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; library_ms={lib_txt}")
-        records[str(dtype)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by, library_ms=lib_ms)
-        del a_t, w_t, out, out_s
+    a_t, w_t = a.to(dtype), p["w1"].permute(1, 0, 2).to(dtype)  # float32: copies
+    out = torch.empty((nnz, bm, bn), dtype=dtype, device=dev)
+    launch = lambda: ext.bsr_sdd(a_t, w_t, rows, cols, out)  # noqa: E731
+    launch()
+    pick = sample_slots(torch, topo, args.seed + 1)
+    sample = (rows[pick], cols[pick])
+    plain = lambda: kref.bsr_sdd_ref(a_t, w_t, *sample, bm, bn)  # noqa: E731
+    tag = f"bsr_sdd {name} {str(dtype)[6:]}"
+    err = check(f"{tag} tables ({len(pick)} sampled slots) kernel vs plain", out[pick],
+                plain(), dtype)
+    ms = median_ms(launch, args.reps)
+    out_s = torch.empty((len(pick), bm, bn), dtype=dtype, device=dev)
+    sample_ms = median_ms(lambda: ext.bsr_sdd(a_t, w_t, *sample, out_s), args.reps)
+    plain_ms = median_ms(plain, args.reps)
+    # the valid slots' a rows and each used expert's weight block read once,
+    # every slot's block written once; padding slots do no work
+    valid = rows < topo.n_block_rows
+    n_a = int(torch.unique(rows[valid]).numel())
+    n_b = int(torch.unique(cols[valid]).numel())
+    es = a_t.element_size()
+    need = (n_a * bm * K + n_b * K * bn + nnz * bm * bn) * es + nbytes(rows, cols)
+    ops = 2 * n_valid * bm * bn * K
+    b_ms, b_by = bound_ms(need, ops, dtype)
+    lib_ms, lib_txt = sdd_library(torch, a_t, w_t, topo, out, n_valid, args.reps)
+    print(f"  {tag}: slots={nnz} ({n_valid} valid) bm={bm} bn={bn} K={K} ms={ms:.4f} "
+          f"bound_ms={b_ms:.4f} ({b_by}: {need} B, {ops} ops) roofline_share={b_ms / ms:.3f}; "
+          f"on {len(pick)} sampled slots: ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; "
+          f"library_ms={lib_txt}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
-    # K2 at the dsd shapes: the activations h against the stacked w2
-    h = bsr_ops.sdd(a, w1, topo)
-    g = bsr_ops.sdd(a, p["w3"].permute(1, 0, 2), topo)
+
+def time_dsd(args, torch, kops, kref, p, a, topo, name):
+    """K2 at the dsd tables as bsr_ops.dsd builds them (m_pad = M, row
+    offsets over the real row tiles only): the activations h against the
+    stacked w2, beside its bound, its plain version on a few whole 64-row
+    panels (the runs a CTA walks) and the library call. The timed launch's
+    own output is held against the plain version on those panels."""
+    from repro_torch.kernels import _build, bsr_ops
+
+    ext = _build.load_kernels()
+    dev = a.device
+    bm, f = topo.block
+    E, d = p["w2"].shape[0], p["w2"].shape[2]
+    w1, w3 = p["w1"].permute(1, 0, 2), p["w3"].permute(1, 0, 2)
+    h, g = bsr_ops.sdd(a, w1, topo), bsr_ops.sdd(a, w3, topo)
     tiles = h.with_data(torch.nn.functional.silu(h.data) * g.data).data.contiguous()
     del h, g
     x2 = p["w2"].reshape(E * f, d)
-    Rb = topo.n_block_rows
-    m_pad = (Rb + 1) * bm
-    rptr = kops.row_ptr_from_ids(topo.row_indices, Rb + 1)
-    y = torch.empty((m_pad, d), dtype=x2.dtype, device=dev)
-    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y, 128)  # noqa: E731
+    M, Rb = topo.shape[0], topo.n_block_rows
+    rows, cols = topo.row_indices, topo.column_indices
+    rptr = kops.row_ptr_from_ids(rows, Rb)
+    y = torch.empty((M, d), dtype=x2.dtype, device=dev)
+    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y)  # noqa: E731
     ms = median_ms(launch, args.reps)
-    ys = torch.empty((m_pad, d), dtype=x2.dtype, device=dev)
-    sel = torch.sort(pick).values
-    s_tiles, s_rows, s_cols = tiles[sel].contiguous(), topo.row_indices[sel], cols[sel]
-    s_ptr = kops.row_ptr_from_ids(s_rows, Rb + 1)
-    ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys, 128)
-    plain = lambda: kref.bsr_spmm_ref(s_tiles, s_rows, s_cols, x2, m_pad)  # noqa: E731
-    err = check("bsr_spmm dsd shapes (64 sampled slots) kernel vs plain", ys, plain(),
-                torch.bfloat16)
-    sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys, 128), args.reps)
+    # a few whole panels of 64 / bm row tiles that hold tiles, and their tiles
+    n_valid = int(topo.n_blocks)
+    panel = 64 // bm
+    live = torch.unique(rows[:n_valid] // panel)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    pick = torch.randperm(live.numel(), generator=gen, device=dev)[:16]
+    panels = torch.sort(live[pick]).values
+    sel = torch.isin(rows[:n_valid] // panel, panels).nonzero().squeeze(1)
+    s_tiles, s_rows, s_cols = tiles[sel].contiguous(), rows[sel], cols[sel]
+    out_rows = (panels[:, None] * (panel * bm) + torch.arange(panel * bm, device=dev)).reshape(-1)
+    out_rows = out_rows[out_rows < M]
+    plain = lambda: kref.bsr_spmm_ref(s_tiles, s_rows, s_cols, x2, M)  # noqa: E731
+    tag = f"bsr_spmm dsd {name} bfloat16"
+    err = check(f"{tag} tables, timed launch's output on {panels.numel()} whole panels "
+                f"({len(sel)} tiles) vs plain", y[out_rows], plain()[out_rows], torch.bfloat16)
+    s_ptr = kops.row_ptr_from_ids(s_rows, Rb)
+    ys = torch.empty_like(y)
+    sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys), args.reps)
     plain_ms = median_ms(plain, args.reps)
-    n_b = int(torch.unique(cols).numel())
-    need = nbytes(tiles, rptr, cols, y) + n_b * f * d * x2.element_size()
-    ops = 2 * tiles.numel() * d
+    del ys
+    # the valid tiles and each used expert's w2 block read once, y written
+    # once; padding tiles are not visited
+    n_b = int(torch.unique(cols[:n_valid]).numel())
+    es = x2.element_size()
+    need = (n_valid * bm * f + n_b * f * d + M * d) * es + nbytes(rptr, cols[:n_valid])
+    ops = 2 * n_valid * bm * f * d
     b_ms, b_by = bound_ms(need, ops, x2.dtype)
-    lib_txt = dsd_library(torch, tiles, topo, cols, x2, args.reps)
-    print(f"  bsr_spmm dsd bfloat16: tiles={tiles.shape[0]} tm={bm} tk={bn} n={d} "
+    del y
+    torch.cuda.empty_cache()
+    lib_ms, lib_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, x2.dtype, args.reps)
+    _, lib32_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, torch.float32, args.reps)
+    print(f"  {tag}: tiles={tiles.shape[0]} ({n_valid} valid) tm={bm} tk={f} n={d} "
           f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {need} B, {ops} ops) "
-          f"roofline_share={b_ms / ms:.3f}; on the 64-slot sample: ms={sample_ms:.4f} "
-          f"plain_ms={plain_ms:.4f} (max_abs_err={err:.3e}); library_ms={lib_txt}")
-    return records
+          f"roofline_share={b_ms / ms:.3f}; on {len(sel)} tiles of {panels.numel()} panels: "
+          f"ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; library_ms={lib_txt} "
+          f"(float32: {lib32_txt})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def device_breakdown(torch, label, fn, top=6):
@@ -398,9 +529,10 @@ def device_breakdown(torch, label, fn, top=6):
 
 def sdd_library(torch, a, w, topo, out, n_valid, reps):
     """torch.sparse.sampled_addmm over the topology's element-level CSR, in
-    float32, held against K3's blocks. (ms or None, text)."""
-    try:
-        bm, bn = topo.block
+    a's dtype, held against K3's valid blocks; (ms or None, text)."""
+    bm, bn = topo.block
+
+    def make():
         dev = a.device
         r = topo.row_indices[:n_valid].long()
         c = topo.column_indices[:n_valid].long()
@@ -410,33 +542,51 @@ def sdd_library(torch, a, w, topo, out, n_valid, reps):
         er = (r[:, None, None] * bm + m[None, :, None]).expand(-1, bm, bn)
         ec = (c[:, None, None] * bn + j[None, None, :]).expand(-1, bm, bn)
         idx = torch.stack([er.reshape(-1), ec.reshape(-1)])
-        stacked = w.reshape(w.shape[0], -1)  # (K, E*bn), a float32 copy
+        stacked = w.reshape(w.shape[0], -1)  # (K, E*bn), a copy
         pattern = torch.sparse_coo_tensor(
-            idx, torch.ones(idx.shape[1], device=dev), (a.shape[0], stacked.shape[1]),
+            idx, torch.ones(idx.shape[1], dtype=a.dtype, device=dev),
+            (a.shape[0], stacked.shape[1]),
         ).coalesce().to_sparse_csr()
-        del idx, er, ec
-        call = lambda: torch.sparse.sampled_addmm(pattern, a, stacked, beta=0.0)  # noqa: E731
-        res = call()
-        check("sampled_addmm vs bsr_sdd (float32, valid slots)",
-              res.values().reshape(n_valid, bm, bn), out[:n_valid], torch.float32)
-        ms = median_ms(call, reps)
-        return ms, f"{ms:.4f}"
-    except (RuntimeError, NotImplementedError, ValueError) as e:
-        return None, f"n/a ({type(e).__name__}: {str(e).splitlines()[0][:200]})"
+        return lambda: torch.sparse.sampled_addmm(pattern, a, stacked, beta=0.0)
+
+    return library_time(f"bsr_sdd library call sampled_addmm ({str(a.dtype)[6:]}, valid slots)",
+                        make, out[:n_valid], a.dtype, reps,
+                        select=lambda res: res.values().reshape(n_valid, bm, bn))
 
 
-def dsd_library(torch, tiles, topo, cols, x, reps):
-    """torch.sparse_bsr_tensor(...) @ x in float32 at the dsd shapes, or
-    n/a with the error this install gives."""
-    try:
-        n_valid = int(topo.n_blocks)
-        bsr = torch.sparse_bsr_tensor(topo.offsets, cols[:n_valid], tiles[:n_valid].float(),
-                                      size=topo.shape)
-        x32 = x.float()
-        ms = median_ms(lambda: bsr @ x32, reps)
-        return f"{ms:.4f}"
-    except (RuntimeError, NotImplementedError, ValueError) as e:
-        return f"n/a ({type(e).__name__}: {str(e).splitlines()[0][:200]})"
+def dsd_library(torch, kref, tiles, topo, x, dtype, reps):
+    """torch.sparse_csr_tensor(...) @ x (cuSPARSE) in ``dtype`` over the
+    element-level CSR of the valid tiles, held against K2's plain version
+    on the first tiles' rows; (ms or None, text)."""
+    n_valid, (bm, bk) = tiles.shape[0], topo.block
+    dev = tiles.device
+    r = topo.row_indices[:n_valid].long()
+    c = topo.column_indices[:n_valid].long()
+    head = slice(0, min(n_valid, 16))
+    m = torch.arange(bm, device=dev)
+    rows = (r[head, None] * bm + m[None, :]).reshape(-1)
+    want = kref.bsr_spmm_ref(tiles[head].float(), r[head], c[head], x.float(),
+                             topo.shape[0])[rows]
+    xd = x.to(dtype)
+
+    def make():
+        j = torch.arange(bk, device=dev)
+        er = (r[:, None, None] * bm + m[None, :, None]).expand(-1, bm, bk)
+        ec = (c[:, None, None] * bk + j[None, None, :]).expand(-1, bm, bk)
+        idx = torch.stack([er.reshape(-1), ec.reshape(-1)])
+        csr = torch.sparse_coo_tensor(idx, tiles.to(dtype).reshape(-1), topo.shape
+                                      ).coalesce().to_sparse_csr()
+        return lambda: csr @ xd
+
+    return library_time(f"bsr_spmm dsd library call sparse_csr_tensor(...) @ x "
+                        f"({str(dtype)[6:]})", make, want, dtype, reps,
+                        select=lambda res: res[rows])
+
+
+def bsr_call(torch, row_ptr, cols, tiles, size, rhs):
+    """torch.sparse_bsr_tensor(...) @ rhs, the tensor built once: the call."""
+    bsr = torch.sparse_bsr_tensor(row_ptr, cols, tiles, size=size, check_invariants=True)
+    return lambda: bsr @ rhs
 
 
 def main() -> int:
@@ -547,31 +697,31 @@ def main() -> int:
         y = torch.empty(t.m_pad, dtype=dt, device=dev)
         ym = torch.empty(t.m_pad, n_cols, dtype=dt, device=dev)
         tag = f"{name} {str(dtype)[6:]}"
-        # the library call takes float32 only; bfloat16 rows get null
-        bsr = (torch.sparse_bsr_tensor(rptr, cols, tiles, size=(t.m_pad, t.k_pad),
-                                       check_invariants=True)
-               if dtype == torch.float32 else None)
-        for kname, launch, plain, lib, out, xin, flops_per in (
+        for kname, launch, plain, rhs, out, xin, flops_per in (
             ("bsr_spmv", lambda: ext.bsr_spmv(tiles, rptr, cols, xp, y),
-             lambda: kref.bsr_spmv_ref(tiles, rows, cols, xp, t.m_pad),
-             lambda: bsr @ xp.unsqueeze(1), y, xp, 2),
-            ("bsr_spmm", lambda: ext.bsr_spmm(tiles, rptr, cols, Xp, ym, 128),
-             lambda: kref.bsr_spmm_ref(tiles, rows, cols, Xp, t.m_pad),
-             lambda: bsr @ Xp, ym, Xp, 2 * n_cols),
+             lambda: kref.bsr_spmv_ref(tiles, rows, cols, xp, t.m_pad), xp.unsqueeze(1),
+             y, xp, 2),
+            ("bsr_spmm", lambda: ext.bsr_spmm(tiles, rptr, cols, Xp, ym),
+             lambda: kref.bsr_spmm_ref(tiles, rows, cols, Xp, t.m_pad), Xp,
+             ym, Xp, 2 * n_cols),
         ):
             launch()
             torch.cuda.synchronize()
-            err = check(f"{kname} {tag} kernel vs plain (main-path tables)", out,
-                        plain(), dtype)
+            want = plain()
+            err = check(f"{kname} {tag} kernel vs plain (main-path tables)", out, want, dtype)
             ms = median_ms(launch, args.reps)
             plain_ms = median_ms(plain, args.reps)
-            lib_ms = None if bsr is None else median_ms(lib, args.reps)
+            # in the row's own dtype: (32, 32) blocks, as the kernels take them
+            lib_ms, lib_txt = library_time(
+                f"{kname} {tag} library call sparse_bsr_tensor(...) @ x",
+                lambda: bsr_call(torch, rptr, cols, tiles, (t.m_pad, t.k_pad), rhs),
+                want, dtype, args.reps, select=lambda r: r.reshape(want.shape))
+            del want
             nbytes = sum(a.numel() * a.element_size() for a in (tiles, rptr, cols, xin, out))
             ops = flops_per * tiles.numel()
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_OPS_PER_S[str(dt)] * 1e3
             bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
             print(
                 f"  {kname} {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
                 f"library_ms={lib_txt} bound_ms={bound_ms:.4f} ({bound_by}: "
@@ -596,17 +746,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_sdd(rng, torch, kops, kref)
     tmoe, p, xs, cfg, cfg_cap, moe_launches = phase_moe(args, torch, kops, kref)
-    sdd_records = phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap)
+    moe_records = phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap)
 
-    # K1, K2: u float32 on the first path; K3: float32 at the MoE prefill tables
+    # K1, K2: u float32 on the first path; K3: float32 at the MoE prefill
+    # tables; beside them each kernel's bfloat16 rows
     final = {k: (records[(k, "u", "torch.float32")], launches[k])
              for k in ("bsr_spmv", "bsr_spmm")}
-    final["bsr_sdd"] = (sdd_records["torch.float32"], moe_launches["bsr_sdd"])
+    final["bsr_sdd"] = (moe_records[("bsr_sdd", "prefill", "torch.float32")],
+                        moe_launches["bsr_sdd"])
     summary = []
     for kname, (source, replaces) in KERNELS.items():
         rec, n = final[kname]
+        extra = {}  # the bfloat16 rows: u on the first path, the MoE tables
+        for key, r in (("u_bf16", records.get((kname, "u", "torch.bfloat16"))),
+                       ("moe_prefill_bf16", moe_records.get((kname, "prefill", "torch.bfloat16"))),
+                       ("moe_decode_bf16", moe_records.get((kname, "decode", "torch.bfloat16")))):
+            if r is not None:
+                for k in ("ms", "bound_ms", "library_ms"):
+                    extra[f"{key}_{k}"] = r[k]
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
+            **extra,
         ))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

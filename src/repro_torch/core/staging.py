@@ -70,7 +70,7 @@ class StagingOptions:
     # cuda (tm, tk): a 32-wide k slice is one 128-byte line per tile row in
     # float32 for K1, and 32 rows fill K2's 8 warps x 4-row register block
     tile: tuple = (32, 32)
-    spmm_bn: int = 128  # cuda N-tile (columns per CTA of K2)
+    spmm_bn: int = 128  # the reference's Pallas N-tile; K2 picks its own from n
     prepack: bool = False  # caller passes prepacked tiles to __call__
     dtype: object = None  # torch dtype to cast values and x to (None = keep)
 

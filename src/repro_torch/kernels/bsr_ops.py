@@ -17,8 +17,10 @@ PyTorch), ``cuda`` (the hand-written kernels: ``dsd`` on K2 ``bsr_spmm``,
 CPU. On the CPU the ``cuda`` backend's wrappers run their kernels' plain
 versions, so the CPU tests reach its glue too.
 
-Padding slots (``row == n_block_rows``) ride along as zero blocks: scatters
-drop them, gathers read clamped coordinates against zero data.
+Padding slots (``row == n_block_rows``) ride along as zero blocks. The
+``grouped`` backend scatters them into a dropped extra row and gathers at
+clamped coordinates; the kernels never touch them (K2's row offsets end
+before them, K3 writes their blocks as zeros without reading its operands).
 
 Only the forward is ported. The reference's ``custom_vjp``s, whose backward
 passes stay inside the family (d dsd/dx = dsd(S^T, g), d/dS = sdd(g, x^T, S)
@@ -67,15 +69,15 @@ def dsd(sp: BlockMatrix, x: torch.Tensor, *, backend: str = "auto") -> torch.Ten
     (M, K), (bm, bk) = sp.shape, sp.block
     Rb, Kb = M // bm, K // bk
     N = x.shape[1]
-    cols = sp.column_indices.clamp(max=Kb - 1)
     if backend == "cuda":
-        # padding slots target the extra (Rb+1)-th block row, sliced off; their
-        # zero data makes the clamped column reads harmless. K2 writes the row
-        # tiles that no slot visits as zeros.
+        # padding slots (row == Rb) sort after every real row, past the row
+        # offsets of the Rb real row tiles, so K2 never visits them; it writes
+        # the row tiles that no slot visits as zeros.
         return ops.bsr_spmm(
-            sp.data.contiguous(), sp.row_indices, cols, x.contiguous(),
-            m_pad=(Rb + 1) * bm, device=x.device,
-        )[:M]
+            sp.data.contiguous(), sp.row_indices, sp.column_indices, x.contiguous(),
+            m_pad=M, device=x.device,
+        )
+    cols = sp.column_indices.clamp(max=Kb - 1)
     xg = x.reshape(Kb, bk, N)[cols.long()]  # (nnz, bk, N)
     part = torch.bmm(sp.data, xg)
     y = torch.zeros((Rb + 1, bm, N), dtype=part.dtype, device=x.device)
@@ -131,17 +133,18 @@ def sdd(a: torch.Tensor, b: torch.Tensor, topo: BlockMatrix, *,
         )
     _forward_only("sdd", a, b)
     backend = _resolve(backend, a.device)
-    valid = topo.valid
-    rc = topo.row_indices.clamp(max=Rb - 1)
-    cc = topo.column_indices.clamp(max=Cb - 1)
     if backend == "cuda":
+        # K3 writes a padding slot (row == Rb) as zeros without reading a or b
         b = b.contiguous() if b.dim() == 2 else b  # a 3-D view keeps its strides
-        data = ops.bsr_sdd(a.contiguous(), b, rc, cc, bm=bm, bn=bn, device=a.device)
+        data = ops.bsr_sdd(a.contiguous(), b, topo.row_indices, topo.column_indices,
+                           bm=bm, bn=bn, device=a.device)
     else:
+        rc = topo.row_indices.clamp(max=Rb - 1)
+        cc = topo.column_indices.clamp(max=Cb - 1)
         ag = a.reshape(Rb, bm, K)[rc.long()]  # (nnz, bm, K)
         bg = b.reshape(K, Cb, bn).permute(1, 0, 2)[cc.long()]  # (nnz, K, bn)
-        data = torch.bmm(ag, bg)
+        data = torch.where(topo.valid[:, None, None], torch.bmm(ag, bg), 0)
     return BlockMatrix(
-        tuple(topo.shape), tuple(topo.block), torch.where(valid[:, None, None], data, 0),
+        tuple(topo.shape), tuple(topo.block), data,
         topo.row_indices, topo.column_indices, topo.offsets,
     )

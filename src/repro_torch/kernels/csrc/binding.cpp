@@ -8,11 +8,11 @@
 void bsr_spmv_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
                      void* y, int n_row_tiles, int tm, int tk, bool bf16, cudaStream_t stream);
 void bsr_spmm_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
-                     void* y, int n_row_tiles, int tm, int tk, int n, int bn, bool bf16,
+                     void* y, int n_row_tiles, int tm, int tk, int n, bool bf16,
                      cudaStream_t stream);
 void bsr_sdd_launch(const void* a, const void* b, const int* rows, const int* cols, void* out,
-                    int nnz, int bm, int bn, int K, int64_t b_stride_k, int64_t b_stride_c,
-                    bool bf16, cudaStream_t stream);
+                    int nnz, int bm, int bn, int K, int n_row_blocks, int64_t b_stride_k,
+                    int64_t b_stride_c, bool bf16, cudaStream_t stream);
 
 namespace {
 
@@ -51,7 +51,7 @@ void bsr_spmv(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
 }
 
 void bsr_spmm(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
-              torch::Tensor x, torch::Tensor y, int64_t bn) {
+              torch::Tensor x, torch::Tensor y) {
   check_operands(tiles, row_ptr, col_ids, x, y);
   const int tm = tiles.size(1), tk = tiles.size(2);
   const int n_row_tiles = row_ptr.size(0) - 1;
@@ -59,15 +59,15 @@ void bsr_spmm(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
   TORCH_CHECK(y.dim() == 2 && y.size(0) == static_cast<int64_t>(n_row_tiles) * tm &&
                   y.size(1) == x.size(1),
               "y must be (n_row_tiles * tm, n)");
-  TORCH_CHECK(bn == 32 || bn == 64 || bn == 128, "bn must be 32, 64 or 128");
   const c10::cuda::CUDAGuard guard(tiles.device());
   bsr_spmm_launch(tiles.data_ptr(), row_ptr.data_ptr<int>(), col_ids.data_ptr<int>(),
-                  x.data_ptr(), y.data_ptr(), n_row_tiles, tm, tk, x.size(1), bn,
+                  x.data_ptr(), y.data_ptr(), n_row_tiles, tm, tk, x.size(1),
                   tiles.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
 }
 
 // a (M, K); b the (K, N / bn, bn) block-column view of the (K, N) operand,
-// any strides with a unit last one; rows, cols (nnz,) int32 in bounds;
+// any strides with a unit last one; rows, cols (nnz,) int32, in bounds but
+// for padding slots (rows >= M / bm), which come out as zero blocks;
 // out (nnz, bm, bn).
 void bsr_sdd(torch::Tensor a, torch::Tensor b, torch::Tensor rows, torch::Tensor cols,
              torch::Tensor out) {
@@ -93,12 +93,13 @@ void bsr_sdd(torch::Tensor a, torch::Tensor b, torch::Tensor rows, torch::Tensor
   TORCH_CHECK(rows.dim() == 1 && rows.size(0) == nnz && cols.dim() == 1 && cols.size(0) == nnz,
               "rows and cols must be (nnz,)");
   TORCH_CHECK(nnz * ((bm + 31) / 32) * ((bn + 127) / 128) < (int64_t{1} << 31) &&
-                  K < (int64_t{1} << 31),
+                  K < (int64_t{1} << 31) && a.size(0) / bm < (int64_t{1} << 31),
               "too many slots for one launch");
   const c10::cuda::CUDAGuard guard(a.device());
   bsr_sdd_launch(a.data_ptr(), b.data_ptr(), rows.data_ptr<int>(), cols.data_ptr<int>(),
                  out.data_ptr(), static_cast<int>(nnz), static_cast<int>(bm),
-                 static_cast<int>(bn), static_cast<int>(K), b.stride(0), b.stride(1),
+                 static_cast<int>(bn), static_cast<int>(K), static_cast<int>(a.size(0) / bm),
+                 b.stride(0), b.stride(1),
                  a.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
 }
 

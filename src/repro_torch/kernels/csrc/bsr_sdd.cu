@@ -4,36 +4,36 @@
 // src/repro/kernels/bsr_ops.py. Same function:
 //   out[i] (bm x bn) = a[rows[i]*bm : +bm, :] @ b[:, cols[i]*bn : +bn]
 // for every slot i, with a float32 accumulator and out in a's dtype (float32
-// or bfloat16). Coordinates arrive clamped in bounds; the caller zeroes the
-// padding slots afterwards, as the reference's `_sdd_impl` does.
+// or bfloat16). A slot whose row block lies past the end of a (rows[i] >=
+// M / bm) is padding: its block is written as zeros, and neither a nor b is
+// read for it. (The reference clamps the padding slots' coordinates, computes
+// their blocks and zeroes them afterwards in `_sdd_impl`.)
 //
-// What bounds it: bytes, at the dropless MoE's shapes. There a slot is one
-// capacity block of 8 token rows against one expert's (K x bn) weight block,
-// so each weight value meets only the 8-24 rows its expert received: at
-// DeepSeek-V2's widths the stacked weight (2.5 GB in bfloat16) outweighs the
-// multiply-adds on tensor cores. This version runs the multiply-adds as
-// float32 FMAs, and each weight value it brings in from L2 meets only the
-// bm = 8 rows of its slot, so on the card it is bound by those loads and
-// FMAs instead (tensor cores, and several slots of one expert per CTA,
-// come later).
+// The TPU grid is (nnz, K/bk) with the output block resident across the K
+// steps and zeroed at k == 0. On the card each CTA loops over all of K
+// itself: nothing carries across CTAs, no atomics, and each output element
+// is written once. b is read through strides (K, column block, column), so a
+// stack of per-expert weights (E, K, bn) is read in place as the stacked
+// (K, E*bn) matrix.
 //
-// Design. The TPU grid is (nnz, K/bk) with the output block resident across
-// the K steps and zeroed at k == 0. Here one CTA owns one output slot, one
-// block of up to BM of its bm rows and a chunk of up to BN = 128 of its bn
-// columns, and loops over all of K itself: nothing carries across CTAs, no
-// atomics, and each output element is written once. Per 32-deep step it
-// stages the (BM x 32) slice of a (transposed) and the (32 x BN) slice of b
-// in shared memory as float32; each of the 64 threads then adds the outer
-// product of the BM a values of a step (broadcast float4 loads) and its CN
-// columns of b into a (BM x CN) float32 register accumulator. Where the
+// bfloat16 (runs.cuh). What bounds it: bytes, at the dropless MoE's shapes.
+// There a slot is one capacity block of 8 token rows against one expert's
+// (K x bn) weight block, so each weight value meets only the rows its expert
+// received: at DeepSeek-V2's widths the stacked weight (2.5 GB in bfloat16)
+// outweighs the multiply-adds. A CTA owns a fixed group of 64 / bm
+// consecutive slots (8 at bm = 8; 64 rows of one slot when bm > 32) by 128
+// columns, and runs each run of consecutive slots with one column block as
+// one pass over that weight chunk. At the MoE's tables a run is one
+// expert's capacity blocks, about 2.8 slots (22 rows) at prefill and 1.3 at
+// decode; consecutive CTAs share the group's rows of a in L2.
+//
+// float32: as first ported, one CTA per (slot, up to 32 rows, up to 128
+// columns), float32 FMAs from shared memory: per 32-deep step it stages the
+// (BM x 32) slice of a (transposed) and the (32 x BN) slice of b as float32,
+// and each of the 64 threads adds the outer product of the BM a values
+// (broadcast float4 loads) and its CN columns of b into registers. Where the
 // rows are aligned, the next step's slices are loaded into registers with
-// 16-byte loads while the current one computes. Rows past bm, depth past K
-// and columns past bn are masked, so any bm, bn, K >= 1 work. b is read
-// through strides (K, column block, column), so a stack of per-expert
-// weights (E, K, bn) is read in place as the stacked (K, E*bn) matrix. CTAs
-// are numbered slot-major (slot, row block, column chunk): the slots of one
-// expert within a group are adjacent, so consecutive CTAs reuse that
-// expert's weight block from L2.
+// 16-byte loads while the current one computes.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <c10/cuda/CUDAException.h>
@@ -41,37 +41,36 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "runs.cuh"
+
 namespace {
 
+// ---------------------------------------------------------------- float32
 constexpr int kThreads = 64;  // each thread owns CN columns of the chunk
 constexpr int kBK = 32;       // depth staged in shared memory per step
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// V consecutive elements of T: one 16-byte load where V * sizeof(T) == 16,
-// else one element (V == 1). Loaded into registers, converted to float at
-// the store into shared memory.
-template <typename T, int V>
+// V consecutive floats: one 16-byte load where V == 4, else one element
+// (V == 1). Loaded into registers, stored into shared memory a step later.
+template <int V>
 struct Pack {
-  using Raw = typename std::conditional<V == 1, T, uint4>::type;
+  using Raw = typename std::conditional<V == 1, float, uint4>::type;
   Raw raw;
-  __device__ __forceinline__ void load(const T* p) { raw = *reinterpret_cast<const Raw*>(p); }
+  __device__ __forceinline__ void load(const float* p) { raw = *reinterpret_cast<const Raw*>(p); }
   __device__ __forceinline__ void zero() { raw = Raw{}; }
   __device__ __forceinline__ float get(int i) const {
-    return to_float(reinterpret_cast<const T*>(&raw)[i]);
+    return reinterpret_cast<const float*>(&raw)[i];
   }
 };
 
 // BM rows per CTA (8, 16 or 32), CN columns per thread (BN = 64 * CN), V
 // elements per global load (16 bytes, or 1 where alignment does not allow).
-template <typename T, int BM, int CN, int V>
+template <int BM, int CN, int V>
 __global__ void __launch_bounds__(kThreads)
-bsr_sdd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __restrict__ rows,
-               const int* __restrict__ cols, T* __restrict__ out, int bm, int bn, int K,
-               int64_t b_stride_k, int64_t b_stride_c, int m_blocks, int n_chunks) {
+bsr_sdd_kernel(const float* __restrict__ a, const float* __restrict__ b,
+               const int* __restrict__ rows, const int* __restrict__ cols,
+               float* __restrict__ out, int bm, int bn, int K,
+               int n_row_blocks, int64_t b_stride_k, int64_t b_stride_c, int m_blocks,
+               int n_chunks) {
   constexpr int BN = kThreads * CN;
   constexpr int LDA = BM + 4;  // keeps float4 alignment, spreads the transposed stores
   constexpr int A_VECS = BM * kBK / V;  // loads of one (BM x 32) slice of a
@@ -88,10 +87,17 @@ bsr_sdd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __re
   const int j0 = chunk * BN;
   const int rows_here = min(BM, bm - m0);
   const int cols_here = min(BN, bn - j0);
-  const T* ab = a + (static_cast<int64_t>(rows[slot]) * bm + m0) * K;
-  const T* bb = b + static_cast<int64_t>(cols[slot]) * b_stride_c + j0;
+  float* ob = out + (static_cast<int64_t>(slot) * bm + m0) * bn + j0;
+  if (rows[slot] >= n_row_blocks) {  // padding: a zero block, no reads
+    for (int r = 0; r < rows_here; ++r)
+      for (int c = threadIdx.x; c < cols_here; c += kThreads)
+        ob[static_cast<int64_t>(r) * bn + c] = 0.f;
+    return;
+  }
+  const float* ab = a + (static_cast<int64_t>(rows[slot]) * bm + m0) * K;
+  const float* bb = b + static_cast<int64_t>(cols[slot]) * b_stride_c + j0;
 
-  Pack<T, V> pa[A_LOADS], pb[B_LOADS];  // a step's slices on their way to shared memory
+  Pack<V> pa[A_LOADS], pb[B_LOADS];  // a step's slices on their way to shared memory
   auto load = [&](int k0) {
 #pragma unroll
     for (int i = 0; i < A_LOADS; ++i) {
@@ -178,14 +184,13 @@ bsr_sdd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __re
     __syncthreads();
   }
 
-  T* ob = out + (static_cast<int64_t>(slot) * bm + m0) * bn + j0;
 #pragma unroll
   for (int r = 0; r < BM; ++r) {
 #pragma unroll
     for (int q = 0; q < CN; ++q) {
       const int c = threadIdx.x + kThreads * q;
       if (r < rows_here && c < cols_here)
-        store(ob + static_cast<int64_t>(r) * bn + c, acc[r][q]);
+        ob[static_cast<int64_t>(r) * bn + c] = acc[r][q];
     }
   }
 }
@@ -196,67 +201,139 @@ struct Args {
   const int* rows;
   const int* cols;
   void* out;
-  int nnz, bm, bn, K;
+  int nnz, bm, bn, K, n_row_blocks;
   int64_t b_stride_k, b_stride_c;
   cudaStream_t stream;
 };
 
-template <typename T, int BM, int CN, int V>
+template <int BM, int CN, int V>
 void launch(const Args& g) {
   const int m_blocks = (g.bm + BM - 1) / BM;
   const int n_chunks = (g.bn + kThreads * CN - 1) / (kThreads * CN);
   const int64_t n_ctas = static_cast<int64_t>(g.nnz) * m_blocks * n_chunks;
-  bsr_sdd_kernel<T, BM, CN, V><<<static_cast<unsigned>(n_ctas), kThreads, 0, g.stream>>>(
-      static_cast<const T*>(g.a), static_cast<const T*>(g.b), g.rows, g.cols,
-      static_cast<T*>(g.out), g.bm, g.bn, g.K, g.b_stride_k, g.b_stride_c, m_blocks, n_chunks);
+  bsr_sdd_kernel<BM, CN, V><<<static_cast<unsigned>(n_ctas), kThreads, 0, g.stream>>>(
+      static_cast<const float*>(g.a), static_cast<const float*>(g.b), g.rows, g.cols,
+      static_cast<float*>(g.out), g.bm, g.bn, g.K, g.n_row_blocks, g.b_stride_k, g.b_stride_c,
+      m_blocks, n_chunks);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // 16-byte loads need 16-byte aligned rows of a and b and whole vectors at the
 // ragged edges: K, bn and b's strides multiples of the vector width.
-template <typename T, int BM, int CN>
+template <int BM, int CN>
 void launch_v(const Args& g) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 4;
   const bool aligned = reinterpret_cast<uintptr_t>(g.a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(g.b) % 16 == 0 && g.K % V == 0 &&
                        g.bn % V == 0 && g.b_stride_k % V == 0 && g.b_stride_c % V == 0;
   if (aligned)
-    launch<T, BM, CN, V>(g);
+    launch<BM, CN, V>(g);
   else
-    launch<T, BM, CN, 1>(g);
+    launch<BM, CN, 1>(g);
 }
 
-template <typename T, int BM>
+template <int BM>
 void launch_cn(const Args& g) {
   if (g.bn <= kThreads)
-    launch_v<T, BM, 1>(g);
+    launch_v<BM, 1>(g);
   else
-    launch_v<T, BM, 2>(g);
+    launch_v<BM, 2>(g);
 }
 
-template <typename T>
-void launch_bm(const Args& g) {
-  if (g.bm <= 8)
-    launch_cn<T, 8>(g);
-  else if (g.bm <= 16)
-    launch_cn<T, 16>(g);
-  else
-    launch_cn<T, 32>(g);
+// --------------------------------------------------------------- bfloat16
+using runs::bf16;
+
+// The passes of one group of slots: runs of consecutive slots with one
+// column block. Padding slots are in no run, so their positions stay zero.
+struct SddRuns {
+  const bf16* a;
+  const bf16* b;
+  const int* rows;
+  const int* cols;
+  int bm, K, n_row_blocks;
+  int64_t b_stride_c;
+  int j0;
+  int s0, m0, rows_here;  // the group's first slot and its first row in that slot
+  int s, s_end;           // the next slot and the end of the group
+
+  __device__ runs::Pass next() {
+    runs::Pass p{{nullptr, nullptr}, nullptr, 0u};
+    while (s < s_end && rows[s] >= n_row_blocks) ++s;
+    if (s >= s_end) return p;
+    const int c = cols[s];
+    p.w = b + c * b_stride_c + j0;
+    for (; s < s_end && rows[s] < n_row_blocks && cols[s] == c; ++s)
+      runs::add_unit(p, (s - s0) * bm - m0, bm, rows_here,
+                     a + static_cast<int64_t>(rows[s]) * bm * K, K);
+    return p;
+  }
+};
+
+// One CTA per (group of `group_slots` slots, block of 64 rows within a slot
+// when bm > 32, 128 columns); the column chunk varies fastest.
+template <bool VEC>
+__global__ void __launch_bounds__(runs::kThreads)
+bsr_sdd_runs_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                    const int* __restrict__ rows, const int* __restrict__ cols,
+                    bf16* __restrict__ out, int nnz, int bm, int bn, int K, int n_row_blocks,
+                    int64_t b_stride_k, int64_t b_stride_c, int group_slots, int m_blocks,
+                    int n_chunks) {
+  const int chunk = blockIdx.x % n_chunks;
+  const int rest = blockIdx.x / n_chunks;
+  const int m0 = (rest % m_blocks) * runs::kRows;
+  const int s0 = rest / m_blocks * group_slots;
+  const int s1 = min(s0 + group_slots, nnz);
+  const int rows_here = min(runs::kRows, (s1 - s0) * bm - m0);
+  const int j0 = chunk * runs::kBN;
+  const int cols_here = min(runs::kBN, bn - j0);
+  SddRuns sched{a, b, rows, cols, bm, K, n_row_blocks, b_stride_c, j0, s0, m0, rows_here, s0, s1};
+  runs::run_passes<VEC>(sched, K, b_stride_k, rows_here, cols_here,
+                        out + (static_cast<int64_t>(s0) * bm + m0) * bn + j0, bn);
+}
+
+template <bool VEC>
+void launch_runs(const Args& g) {
+  const int group_slots = g.bm <= runs::kRows / 2 ? runs::kRows / g.bm : 1;
+  const int m_blocks = group_slots > 1 ? 1 : (g.bm + runs::kRows - 1) / runs::kRows;
+  const int n_chunks = (g.bn + runs::kBN - 1) / runs::kBN;
+  const int64_t n_ctas =
+      static_cast<int64_t>((g.nnz + group_slots - 1) / group_slots) * m_blocks * n_chunks;
+  bsr_sdd_runs_kernel<VEC><<<static_cast<unsigned>(n_ctas), runs::kThreads, 0, g.stream>>>(
+      static_cast<const bf16*>(g.a), static_cast<const bf16*>(g.b), g.rows, g.cols,
+      static_cast<bf16*>(g.out), g.nnz, g.bm, g.bn, g.K, g.n_row_blocks, g.b_stride_k,
+      g.b_stride_c, group_slots, m_blocks, n_chunks);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 }  // namespace
 
 // a (M, K) contiguous; b read at b[k * b_stride_k + c * b_stride_c + j] for
-// depth k, column block c and column j < bn; rows, cols (nnz,) int32 in
-// bounds; out (nnz, bm, bn) contiguous. Checked by the caller; the CTA count
+// depth k, column block c and column j < bn; rows, cols (nnz,) int32, in
+// bounds but for padding slots (rows >= n_row_blocks = M / bm); out (nnz, bm,
+// bn) contiguous. Checked by the caller; the CTA count
 // nnz * ceil(bm / BM) * ceil(bn / 128) must stay below 2^31.
 void bsr_sdd_launch(const void* a, const void* b, const int* rows, const int* cols, void* out,
-                    int nnz, int bm, int bn, int K, int64_t b_stride_k, int64_t b_stride_c,
-                    bool bf16, cudaStream_t stream) {
+                    int nnz, int bm, int bn, int K, int n_row_blocks, int64_t b_stride_k,
+                    int64_t b_stride_c, bool is_bf16, cudaStream_t stream) {
   if (nnz == 0 || bm == 0 || bn == 0) return;
-  const Args g{a, b, rows, cols, out, nnz, bm, bn, K, b_stride_k, b_stride_c, stream};
-  if (bf16)
-    launch_bm<__nv_bfloat16>(g);
+  const Args g{a, b, rows, cols, out, nnz, bm, bn, K, n_row_blocks, b_stride_k, b_stride_c,
+               stream};
+  if (is_bf16) {
+    // 16-byte loads and stores need 16-byte aligned rows of a, b and out
+    const bool vec = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0 && K % 8 == 0 && bn % 8 == 0 &&
+                     b_stride_k % 8 == 0 && b_stride_c % 8 == 0;
+    if (vec)
+      launch_runs<true>(g);
+    else
+      launch_runs<false>(g);
+    return;
+  }
+  if (bm <= 8)
+    launch_cn<8>(g);
+  else if (bm <= 16)
+    launch_cn<16>(g);
   else
-    launch_bm<float>(g);
+    launch_cn<32>(g);
 }

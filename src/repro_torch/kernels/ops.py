@@ -87,9 +87,12 @@ def bsr_spmv(tiles, row_ids, col_ids, x, *, m_pad, row_ptr=None, device=None):
 def bsr_spmm(tiles, row_ids, col_ids, x, *, m_pad, bn=128, row_ptr=None, device=None):
     """Block-sparse SpMM: y (m_pad, n) from uniform tiles + tables.
 
-    ``bn`` is the column block of one CTA; the kernel takes 32, 64 or 128,
-    so it is rounded up to one of them (it shapes the schedule, not the
-    result). Columns past ``n`` are masked in the kernel.
+    ``bn`` is the reference's column block of its Pallas grid: it shapes
+    that schedule, not the result, and is taken for the reference's
+    signature only. The CUDA kernel works its column block out from ``n``
+    in both dtypes and masks columns past ``n``. Tiles whose row tile lies past
+    ``m_pad // tm`` are never visited (the CUDA path's row offsets end
+    before them): ``bsr_ops.dsd`` leaves its padding slots there.
     """
     dev, tiles, row_ids, col_ids, x, row_ptr = _prepare(
         tiles, row_ids, col_ids, x, row_ptr, m_pad, device, x_dim=2
@@ -101,9 +104,7 @@ def bsr_spmm(tiles, row_ids, col_ids, x, *, m_pad, bn=128, row_ptr=None, device=
     if m_pad and n:
         from ._build import load_kernels
 
-        width = min(bn, n)
-        kernel_bn = 32 if width <= 32 else 64 if width <= 64 else 128
-        load_kernels().bsr_spmm(tiles, row_ptr, col_ids, x, y, kernel_bn)
+        load_kernels().bsr_spmm(tiles, row_ptr, col_ids, x, y)
         launches["bsr_spmm"] += 1
     return y
 
@@ -116,8 +117,9 @@ def bsr_sdd(a, b, rows, cols, *, bm, bn, device=None):
     block-column view (K, N // bn, bn) with any strides but a unit last one:
     a stack of per-column-block weights ``w (Cb, K, bn)`` is passed as
     ``w.permute(1, 0, 2)``, the stacked (K, Cb * bn) matrix without a copy.
-    ``rows`` and ``cols`` must be in bounds (``bsr_ops.sdd`` clamps padding
-    slots' coordinates). Slots are launched in slot order.
+    A slot with ``rows[i] >= M // bm`` is padding: its block is written as
+    zeros and neither ``a`` nor ``b`` is read for it, so its ``cols[i]`` may
+    hold anything; every other slot's coordinates must be in bounds.
     """
     dev = resolve_device(device)
     a, b = _on(a, dev), _on(b, dev)

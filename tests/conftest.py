@@ -6,3 +6,9 @@ import sys
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: launches a CUDA kernel; skips without a CUDA device"
+    )

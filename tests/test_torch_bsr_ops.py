@@ -17,6 +17,7 @@ torch.set_num_threads(1)  # xdist runs this file beside the JAX suites
 from repro_torch.kernels import bsr_ops as tops  # noqa: E402
 from repro_torch.kernels import ops as tkops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import testing as ttesting  # noqa: E402
 from repro_torch.sparse import block_csr as tbc  # noqa: E402
 
 # float32 throughout, as tests/test_bsr_ops.py: the same products summed in
@@ -26,9 +27,15 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # mantissa)
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
 CPU = "cpu"
-requires_cuda = pytest.mark.skipif(
-    "not torch.cuda.is_available()", reason="needs a CUDA device to launch the kernel"
-)
+requires_cuda = pytest.mark.requires_cuda
+
+
+@pytest.fixture(autouse=True)
+def _card(request):
+    """Tests marked requires_cuda skip without a card: decided here, when the
+    test runs, so that every worker collects the same tests."""
+    if request.node.get_closest_marker("requires_cuda") and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to launch the kernel")
 
 
 def _summary(sp):
@@ -232,6 +239,48 @@ def test_sdd_plain_matches_pallas_interpret(jx, bm, bn, K):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("bm,bn,K", [(8, 16, 24), (4, 8, 768)])
+def test_sdd_padding_slots_are_zero_blocks_unclamped(jx, bm, bn, K):
+    """K3's padding contract: a slot whose row block lies past ``a``
+    (row == Rb, as BlockMatrix pads) is a zero block whatever its column,
+    without clamping. The reference clamps such slots, computes them with
+    _sdd_pallas and zeroes them in _sdd_impl; the valid slots agree."""
+    rng = np.random.default_rng(bm + K)
+    Rb = Cb = 4
+    rows = np.array([0, 0, 1, 3, 4, 4, 4], np.int32)  # the last three: padding
+    cols = np.array([1, 2, 0, 0, 0, Cb + 9, -3], np.int32)  # never read for padding
+    a = rng.standard_normal((Rb * bm, K)).astype(np.float32)
+    b = rng.standard_normal((K, Cb * bn)).astype(np.float32)
+    valid = rows < Rb
+    want = np.asarray(jx.ops._sdd_pallas(
+        jx.jnp.asarray(a), jx.jnp.asarray(b), jx.jnp.asarray(np.minimum(rows, Rb - 1)),
+        jx.jnp.asarray(np.where(valid, cols, 0)), bm=bm, bn=bn, interpret=True))
+    want = np.where(valid[:, None, None], want, 0.0)
+    got = tkops.bsr_sdd(torch.as_tensor(a), torch.as_tensor(b), rows, cols, bm=bm, bn=bn,
+                        device=CPU)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[~torch.as_tensor(valid)].any()
+
+
+def test_dsd_cuda_glue_calls_k2_with_m_pad_m(jx):
+    """dsd's cuda backend hands K2 the BlockMatrix's own tables with m_pad =
+    M: the padding slots (row == Rb, here with garbage data) lie past the
+    row offsets of the Rb real row tiles and add nothing. Held against the
+    reference's dsd, which scatters them into an extra row it slices off."""
+    rng = np.random.default_rng(11)
+    mask = rng.random((3, 4)) < 0.5
+    data, n_slots, dense = _op_inputs("dsd", rng, mask, 4, 8, pad=3)
+    sp = tbc.BlockMatrix.from_mask(mask, (4, 8), data=data, nnz_max=n_slots, device=CPU)
+    junk = torch.where(sp.valid[:, None, None], sp.data, 7.0)  # padding slots' data
+    want = np.asarray(jx.op_grouped("dsd", mask, data, n_slots, (4, 8), *dense))
+    got = tkops.bsr_spmm(junk, sp.row_indices, sp.column_indices, torch.as_tensor(dense[0]),
+                         m_pad=sp.shape[0], device=CPU)
+    assert tuple(got.shape) == want.shape == (12, 5)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(tops.dsd(sp, torch.as_tensor(dense[0]), backend="cuda").numpy(),
+                               want, **TOL)
+
+
 # ---------------------------------------------------------------------- #
 # edge cases (dense numpy is the reference)
 # ---------------------------------------------------------------------- #
@@ -332,6 +381,55 @@ def test_bsr_sdd_kernel_matches_plain(bm, bn, K, dtype):
         torch.cuda.synchronize()
         tol = TOL_BF16 if dtype == torch.bfloat16 else TOL
         torch.testing.assert_close(got.float(), want, **tol)
+
+
+def _run_slots(n_col_blocks, seed, pad):
+    """Slots made of runs, as the dropless MoE's topology makes them: runs
+    of 1-9 slots of one column block (in shuffled order, so some cross a
+    CTA's group of slots) over consecutive row blocks, with a gap between
+    some runs; then ``pad`` padding slots (row == n_row_blocks) with an
+    out-of-range column. Returns (rows, cols, n_row_blocks)."""
+    rng = np.random.default_rng(seed)
+    rows, cols, r = [], [], 0
+    for length in rng.permutation(np.arange(1, 10)):
+        rows += range(r, r + length)
+        cols += [int(rng.integers(n_col_blocks))] * length
+        r += length + int(rng.integers(0, 2))
+    rows = np.concatenate([rows, np.full(pad, r)]).astype(np.int32)
+    cols = np.concatenate([cols, np.full(pad, n_col_blocks + 7)]).astype(np.int32)
+    return rows, cols, r
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm,bn,K", [
+    (8, 1536, 512),  # the MoE's blocks, at a shorter depth
+    (8, 200, 45),  # bn past one 128-column chunk, ragged; K not a multiple of 8
+    (16, 136, 96),
+    (32, 130, 64),
+    (5, 72, 40),  # 12 slots of 5 rows to a CTA
+    (40, 136, 96),  # one slot of 40 rows to a CTA
+    (100, 72, 40),  # two CTAs to a slot, the second over its last 36 rows
+])
+def test_bsr_sdd_runs_match_plain(bm, bn, K, dtype):
+    """K3 on run-structured slots, padding included, against its plain version."""
+    n_cb = 7
+    rows, cols, Rb = ttesting.run_slots(np.random.default_rng(bm * bn + K), n_cb, pad=3)
+    rng = np.random.default_rng(K)
+    dev = torch.device("cuda")
+    a = torch.as_tensor(rng.standard_normal((Rb * bm, K)), device=dev).to(dtype)
+    w = torch.as_tensor(rng.standard_normal((n_cb, K, bn)), device=dev).to(dtype)
+    r, c = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    want = tref.bsr_sdd_ref(a, w.permute(1, 0, 2), r, c, bm, bn).float()
+    before = tkops.launches["bsr_sdd"]
+    got = tkops.bsr_sdd(a, w.permute(1, 0, 2), r, c, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert tkops.launches["bsr_sdd"] == before + 1
+    # relative to the largest value, as chip_smoke.py checks: at K = 512 the
+    # float32 sums in another order differ by ~5e-5 on values up to ~100
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() <= tol
+    assert not got[-3:].any()
 
 
 @requires_cuda

@@ -19,13 +19,20 @@ except ImportError:  # keep deterministic cases running without hypothesis
 
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import testing as ttesting  # noqa: E402
 
 # as in tests/test_kernels.py: float32 sums in another order, bfloat16
 # inputs (and the Pallas kernel's bfloat16 adds per tile)
 TOL = {"float32": 2e-5, "bfloat16": 6e-2}
-requires_cuda = pytest.mark.skipif(
-    "not torch.cuda.is_available()", reason="needs a CUDA device to launch the kernel"
-)
+requires_cuda = pytest.mark.requires_cuda
+
+
+@pytest.fixture(autouse=True)
+def _card(request):
+    """Tests marked requires_cuda skip without a card: decided here, when the
+    test runs, so that every worker collects the same tests."""
+    if request.node.get_closest_marker("requires_cuda") and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to launch the kernel")
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +56,17 @@ def _tables(nb, tm, tk, n_rows, n_cols, seed, empty_rows=0):
     cols = rng.integers(0, n_cols, len(rows)).astype(np.int32)
     tiles = rng.standard_normal((len(rows), tm, tk)).astype(np.float32)
     return tiles, rows, cols
+
+
+def _run_tables(tm, tk, n_cols, seed, pad):
+    """``testing.run_tables`` (runs of 1-9 row tiles of one column tile,
+    two runs into one row tile, ``pad`` padding tiles past the last row
+    tile) with random tiles, the padding ones holding garbage. Returns
+    (tiles, rows, cols, n_rows)."""
+    rng = np.random.default_rng(seed)
+    rows, cols, n_rows = ttesting.run_tables(rng, n_cols, pad)
+    tiles = rng.standard_normal((len(rows), tm, tk)).astype(np.float32)
+    return tiles, rows, cols, n_rows
 
 
 def _as(jnp, a, dtype):
@@ -114,6 +132,28 @@ def test_empty_row_tiles_are_zero(jx, kind):
     _close(got, pallas, "float32", rows=visited)
     _close(got, oracle, "float32")
     assert (got[~torch.as_tensor(visited)] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["spmv", "spmm"])
+def test_padding_tiles_past_the_last_row_tile_are_dropped(jx, kind):
+    """Tiles whose row tile lies past m_pad // tm (BlockMatrix's padding,
+    here with garbage data) add nothing: the kernels' row offsets end before
+    them. The reference's oracle gives the same rows with one more row tile
+    for them, which dsd slices off."""
+    tm, tk, n_cols = 8, 16, 4
+    tiles, rows, cols, n_rows = _run_tables(tm, tk, n_cols, seed=8, pad=3)
+    rng = np.random.default_rng(9)
+    m_pad = n_rows * tm
+    if kind == "spmv":
+        x = rng.standard_normal(n_cols * tk).astype(np.float32)
+        got = tops.bsr_spmv(tiles, rows, cols, x, m_pad=m_pad, device="cpu")
+        want = jx.ref.bsr_spmv_ref(tiles, rows, cols, x, m_pad + tm)[:m_pad]
+    else:
+        x = rng.standard_normal((n_cols * tk, 11)).astype(np.float32)
+        got = tops.bsr_spmm(tiles, rows, cols, x, m_pad=m_pad, bn=8, device="cpu")
+        want = jx.ref.bsr_spmm_ref(tiles, rows, cols, x, m_pad + tm)[:m_pad]
+    assert got.shape[0] == m_pad
+    _close(got, want, "float32")
 
 
 @settings(max_examples=10, deadline=None)
@@ -190,5 +230,35 @@ def test_cuda_bsr_spmm_matches_plain(dtype):
     torch.cuda.synchronize()
     assert tops.launches["bsr_spmm"] == before + 1
     ref = tref.bsr_spmm_ref(t, r, c, x, 23 * 16)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= tol
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tm,tk,n", [
+    (8, 1536, 200),  # the MoE's dsd tiles; n past one 128-column chunk, ragged
+    (8, 40, 136),
+    (16, 24, 100),
+    (32, 32, 128),  # the first path's tiles: a panel of 2 row tiles
+    (5, 16, 72),  # 12 row tiles of 5 rows to a 64-row panel
+    (5, 7, 33),  # nothing 16-byte aligned
+    (40, 24, 100),  # one row tile of 40 rows to a CTA
+    (100, 16, 72),  # two CTAs to a row tile, the second over its last 36 rows
+])
+def test_cuda_bsr_spmm_runs_match_plain(tm, tk, n, dtype):
+    """K2 on run-structured tables (runs of 1-9 tiles of one column tile,
+    runs across panels, two runs into one row tile, empty row tiles,
+    padding tiles past the last row tile) against its plain version."""
+    tiles, rows, cols, n_rows = _run_tables(tm, tk, 9, seed=tm * tk + n, pad=5)
+    dev = torch.device("cuda")
+    t = torch.as_tensor(tiles, device=dev).to(getattr(torch, dtype))
+    r, c = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    x = torch.randn(9 * tk, n, device=dev).to(t.dtype)
+    before = tops.launches["bsr_spmm"]
+    y = tops.bsr_spmm(t, r, c, x, m_pad=n_rows * tm, device=dev)
+    torch.cuda.synchronize()
+    assert tops.launches["bsr_spmm"] == before + 1
+    ref = tref.bsr_spmm_ref(t, r, c, x, n_rows * tm)
     tol = 1e-5 if dtype == "float32" else 2e-2
     assert ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= tol

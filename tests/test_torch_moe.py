@@ -28,9 +28,15 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 # to 1e-5 (the aux loss to 1e-6 relative)
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = "cpu"
-requires_cuda = pytest.mark.skipif(
-    "not torch.cuda.is_available()", reason="needs a CUDA device to launch the kernels"
-)
+requires_cuda = pytest.mark.requires_cuda
+
+
+@pytest.fixture(autouse=True)
+def _card(request):
+    """Tests marked requires_cuda skip without a card: decided here, when the
+    test runs, so that every worker collects the same tests."""
+    if request.node.get_closest_marker("requires_cuda") and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to launch the kernels")
 
 
 @pytest.fixture(scope="module")

@@ -24,9 +24,15 @@ NAMES = ["banded", "arrow", "random_block"]
 BACKENDS = ["unrolled", "grouped", "bucketed", "cuda"]
 TOL = 2e-4
 CPU = "cpu"
-requires_cuda = pytest.mark.skipif(
-    "not torch.cuda.is_available()", reason="needs a CUDA device to launch the kernels"
-)
+requires_cuda = pytest.mark.requires_cuda
+
+
+@pytest.fixture(autouse=True)
+def _card(request):
+    """Tests marked requires_cuda skip without a card: decided here, when the
+    test runs, so that every worker collects the same tests."""
+    if request.node.get_closest_marker("requires_cuda") and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device to launch the kernels")
 
 
 @pytest.fixture(scope="module")
