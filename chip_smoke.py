@@ -10,12 +10,16 @@ Phases, each printing its lines:
             time;
 2. kernels  holds K1 and K2 against their plain PyTorch versions on random
             sorted tile tables (empty row tiles, n not a multiple of the
-            column block, odd tiles, float32 and bfloat16) and on tables
+            column block, odd tiles, float32 and bfloat16), on tables
             made of runs of 1-9 row tiles sharing a column tile, as the
             MoE's dsd makes them (runs across a 64-row panel, two runs into
             one row tile, padding tiles past the last row tile, tm = 5, 8,
             16, 32, and in bfloat16 40 and 100, where a CTA takes 64 rows
-            of one tile);
+            of one tile), and on the skewed tables of testing.SKEWED that
+            stress K1's and K2's even split of the tile table over the
+            card's workers (a row tile with 90% of the tiles, fewer tiles
+            than workers, one tile, long runs of empty row tiles), where
+            a second launch in float32 must give the same bits;
 3. main     drives the port's first path, stage_spmv and stage_spmm
             (n = 128) through the 'cuda' backend, on the paper's
             10 000 x 10 000 matrices <50,50,500,u> and <100,100,500,nu>
@@ -28,8 +32,13 @@ Phases, each printing its lines:
             and torch.sparse_bsr_tensor(...) @ x (in the row's dtype, its
             error against the plain version printed beside it; "n/a" with
             the error where this install refuses it) on the main path's
-            tables, each kernel's bound, and each staged fn(val, x),
-            prepacked and not;
+            tables (with the schedules the staged path built), each timed
+            call after a 134 MB write and read that flush the L2 (outside
+            the events), each kernel's bound, and each staged fn(val, x),
+            prepacked and not; in float32 the last timed launch must give
+            the first one's bits; at u, each kernel's device time by
+            launch under torch.profiler, and beforehand the launch floor
+            (an empty kernel timed the same way);
 5. sdd      holds K3 against its plain version on odd shapes (bm = 8 and
             others, bn not a multiple of 128, K not a multiple of 32,
             padding slots with out-of-range columns, b as a strided expert
@@ -58,9 +67,12 @@ Phases, each printing its lines:
             CSR.
 
 Tolerance: max|out - ref| / max|ref| <= 1e-5 in float32, 2e-2 in bfloat16.
-Any failure raises. The last two lines are the `kernels` JSON object and
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result.
+Any failure raises. The last two lines are the `kernels` JSON object (K1
+and K2 at u in float32 as the rows' own keys, and their other rows as
+u_bf16_*, nu_f32_* and nu_bf16_* keys; K3 at the MoE prefill tables in
+float32, and moe_*_bf16_* keys) and {"ok": true, "device": {...}}.
+Without a CUDA device, or without the package beside this script, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -104,7 +116,7 @@ def check(label: str, out, ref, dtype) -> float:
     return err
 
 
-def library_time(label, make, want, dtype, reps, select=lambda y: y):
+def library_time(label, make, want, dtype, reps, select=lambda y: y, before=None):
     """A library call that computes a kernel's function, timed as its
     yardstick: ``make()`` builds the library's operands and returns the
     call. Its result (through ``select``) is compared with ``want``, and the
@@ -124,15 +136,16 @@ def library_time(label, make, want, dtype, reps, select=lambda y: y):
         return None, txt
     err, rel = rel_err(got, want)
     del got
-    ms = median_ms(call, reps)
+    ms = median_ms(call, reps, before)
     tol = TOL[str(dtype)]
     note = "" if rel <= tol else f", less precise than the kernels' tolerance {tol:g}"
     print(f"  {label}: ms={ms:.4f} vs plain: max_abs_err={err:.3e} rel={rel:.3e}{note}")
     return ms, f"{ms:.4f}"
 
 
-def median_ms(fn, reps: int) -> float:
-    """Median of per-call CUDA-event times, after two warm-up calls."""
+def median_ms(fn, reps: int, before=None) -> float:
+    """Median of per-call CUDA-event times, after two warm-up calls;
+    ``before()``, if given, runs ahead of each call outside the events."""
     import torch
 
     for _ in range(2):
@@ -141,6 +154,8 @@ def median_ms(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         start.record()
         fn()
         end.record()
@@ -188,6 +203,11 @@ def phase_kernels(rng, torch, kops, kref):
         ("runs", 40, 24, 100, torch.bfloat16),
         ("runs", 100, 16, 136, torch.bfloat16),
     ]
+    # the skewed tables of K1 and K2's split over the card's workers: a row
+    # tile with 90% of the tiles, fewer tiles than workers, one tile, long
+    # runs of empty row tiles; float32 twice, for bit-identical results
+    cases += [(kind, 32, 32, 100, dtype) for kind in testing.SKEWED
+              for dtype in (torch.float32, torch.bfloat16)]
     dev = torch.device("cuda")
     for kind, tm, tk, n, dtype in cases:
         n_ct = 9
@@ -195,7 +215,10 @@ def phase_kernels(rng, torch, kops, kref):
             n_rt = 23
             tiles, rows, cols = random_tables(rng, n_rt, n_ct, 60, tm, tk, empty_rows=4)
         else:
-            rows, cols, n_rt = testing.run_tables(rng, n_ct, pad=5)
+            if kind == "runs":
+                rows, cols, n_rt = testing.run_tables(rng, n_ct, pad=5)
+            else:
+                rows, cols, n_rt = testing.skewed_tables(rng, kind, n_ct)
             tiles = rng.standard_normal((len(rows), tm, tk)).astype(np.float32)
             tiles[rows == n_rt] = 0  # padding holds zeros, as BlockMatrix's does
         t = torch.as_tensor(tiles, device=dev).to(dtype)
@@ -210,6 +233,21 @@ def phase_kernels(rng, torch, kops, kref):
         tag = f"{kind} tables tm={tm} tk={tk} n={n} {str(dtype)[6:]}"
         check(f"bsr_spmv {tag}", y, kref.bsr_spmv_ref(t, r, c, x, m_pad), dtype)
         check(f"bsr_spmm {tag}", ym, kref.bsr_spmm_ref(t, r, c, xm, m_pad), dtype)
+        if kind in testing.SKEWED and dtype == torch.float32:
+            same_bits(f"bsr_spmv {tag}", y, kops.bsr_spmv(t, r, c, x, m_pad=m_pad, device=dev))
+            same_bits(f"bsr_spmm {tag}", ym,
+                      kops.bsr_spmm(t, r, c, xm, m_pad=m_pad, device=dev))
+
+
+def same_bits(label: str, first, again) -> None:
+    """Two launches on the same inputs must give the same bits."""
+    import torch
+
+    torch.cuda.synchronize()
+    ok = torch.equal(first, again)
+    print(f"  {label}: second launch bit-identical {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
 
 
 def bound_ms(nbytes: int, ops: int, dtype) -> tuple[float, str]:
@@ -452,7 +490,8 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
     rows, cols = topo.row_indices, topo.column_indices
     rptr = kops.row_ptr_from_ids(rows, Rb)
     y = torch.empty((M, d), dtype=x2.dtype, device=dev)
-    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y)  # noqa: E731
+    none = torch.empty(0, device=dev)  # the bfloat16 body takes no schedule
+    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y, none, none)  # noqa: E731
     ms = median_ms(launch, args.reps)
     # a few whole panels of 64 / bm row tiles that hold tiles, and their tiles
     n_valid = int(topo.n_blocks)
@@ -471,7 +510,8 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
                 f"({len(sel)} tiles) vs plain", y[out_rows], plain()[out_rows], torch.bfloat16)
     s_ptr = kops.row_ptr_from_ids(s_rows, Rb)
     ys = torch.empty_like(y)
-    sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys), args.reps)
+    sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys, none, none),
+                          args.reps)
     plain_ms = median_ms(plain, args.reps)
     del ys
     # the valid tiles and each used expert's w2 block read once, y written
@@ -583,6 +623,22 @@ def dsd_library(torch, kref, tiles, topo, x, dtype, reps):
                         select=lambda res: res[rows])
 
 
+def l2_flush(torch):
+    """A call that writes 134 MB, well past the 50 MB L2, then reads it back,
+    so that the next launch finds its inputs in device memory as a cold
+    caller would: the tiles of nu (26 MB in float32) and of u in bfloat16
+    (50 MB) would otherwise stay in L2 between back-to-back launches. The
+    read leaves the L2 full of clean lines: after the write alone it would
+    hold 50 MB of dirty ones, whose write-back the timed launch would pay."""
+    scratch = torch.empty(2**25, dtype=torch.float32, device="cuda")
+
+    def flush():
+        scratch.zero_()
+        scratch.sum()
+
+    return flush
+
+
 def bsr_call(torch, row_ptr, cols, tiles, size, rhs):
     """torch.sparse_bsr_tensor(...) @ rhs, the tensor built once: the call."""
     bsr = torch.sparse_bsr_tensor(row_ptr, cols, tiles, size=size, check_invariants=True)
@@ -682,8 +738,13 @@ def main() -> int:
         del dense
 
     # -- phase 4 ---------------------------------------------------------
-    print(f"phase 4: times (median of {args.reps} calls, CUDA events)")
+    print(f"phase 4: times (median of {args.reps} calls, CUDA events; K1/K2, their plain "
+          f"versions and library calls each after an L2 flush)")
     ext = _build.load_kernels()
+    flush = l2_flush(torch)
+    tiny = torch.empty(32, device=dev)
+    print(f"  launch floor: one kernel that does nothing, timed the same way "
+          f"ms={median_ms(tiny.zero_, args.reps, flush):.4f}")
     records = {}
     for name, dtype, ks, km, val, x, X in runs:
         t = ks.tiled
@@ -696,12 +757,19 @@ def main() -> int:
         rptr = torch.as_tensor(t.row_ptr, device=dev)
         y = torch.empty(t.m_pad, dtype=dt, device=dev)
         ym = torch.empty(t.m_pad, n_cols, dtype=dt, device=dev)
+        # the schedules the staged path built, and their scratch
+        sv, sm = ks.schedules[dt], km.schedules[dt]
+        pv = torch.empty(2 * sv.shape[0] * t.tm, dtype=torch.float32, device=dev)
+        if sm is not None:
+            pm = torch.empty(2 * sm.shape[0] * t.tm * n_cols, dtype=torch.float32, device=dev)
+        else:  # the bfloat16 body walks row_ptr alone
+            sm = pm = torch.empty(0, device=dev)
         tag = f"{name} {str(dtype)[6:]}"
         for kname, launch, plain, rhs, out, xin, flops_per in (
-            ("bsr_spmv", lambda: ext.bsr_spmv(tiles, rptr, cols, xp, y),
+            ("bsr_spmv", lambda: ext.bsr_spmv(tiles, rptr, cols, xp, y, sv, pv),
              lambda: kref.bsr_spmv_ref(tiles, rows, cols, xp, t.m_pad), xp.unsqueeze(1),
              y, xp, 2),
-            ("bsr_spmm", lambda: ext.bsr_spmm(tiles, rptr, cols, Xp, ym),
+            ("bsr_spmm", lambda: ext.bsr_spmm(tiles, rptr, cols, Xp, ym, sm, pm),
              lambda: kref.bsr_spmm_ref(tiles, rows, cols, Xp, t.m_pad), Xp,
              ym, Xp, 2 * n_cols),
         ):
@@ -709,13 +777,19 @@ def main() -> int:
             torch.cuda.synchronize()
             want = plain()
             err = check(f"{kname} {tag} kernel vs plain (main-path tables)", out, want, dtype)
-            ms = median_ms(launch, args.reps)
-            plain_ms = median_ms(plain, args.reps)
+            first = out.clone()
+            ms = median_ms(launch, args.reps, flush)
+            if dt == torch.float32:  # the last timed launch against the first
+                same_bits(f"{kname} {tag} main-path tables", first, out)
+            del first
+            if name == "u":  # the kernel's own launches, the cut row tiles' join beside it
+                device_breakdown(torch, f"{kname} {tag} (L2 not flushed)", launch)
+            plain_ms = median_ms(plain, args.reps, flush)
             # in the row's own dtype: (32, 32) blocks, as the kernels take them
             lib_ms, lib_txt = library_time(
                 f"{kname} {tag} library call sparse_bsr_tensor(...) @ x",
                 lambda: bsr_call(torch, rptr, cols, tiles, (t.m_pad, t.k_pad), rhs),
-                want, dtype, args.reps, select=lambda r: r.reshape(want.shape))
+                want, dtype, args.reps, select=lambda r: r.reshape(want.shape), before=flush)
             del want
             nbytes = sum(a.numel() * a.element_size() for a in (tiles, rptr, cols, xin, out))
             ops = flops_per * tiles.numel()
@@ -742,7 +816,7 @@ def main() -> int:
             del kp, packed
 
     # -- phases 5-7 --------------------------------------------------------
-    del runs, outs
+    del runs, outs, flush
     torch.cuda.empty_cache()
     phase_sdd(rng, torch, kops, kref)
     tmoe, p, xs, cfg, cfg_cap, moe_launches = phase_moe(args, torch, kops, kref)
@@ -757,8 +831,10 @@ def main() -> int:
     summary = []
     for kname, (source, replaces) in KERNELS.items():
         rec, n = final[kname]
-        extra = {}  # the bfloat16 rows: u on the first path, the MoE tables
+        extra = {}  # the other rows: u bfloat16 and nu, the MoE tables
         for key, r in (("u_bf16", records.get((kname, "u", "torch.bfloat16"))),
+                       ("nu_f32", records.get((kname, "nu", "torch.float32"))),
+                       ("nu_bf16", records.get((kname, "nu", "torch.bfloat16"))),
                        ("moe_prefill_bf16", moe_records.get((kname, "prefill", "torch.bfloat16"))),
                        ("moe_decode_bf16", moe_records.get((kname, "decode", "torch.bfloat16")))):
             if r is not None:

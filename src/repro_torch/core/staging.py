@@ -68,9 +68,9 @@ class StagingOptions:
     backend: str = "auto"  # auto|unrolled|grouped|bucketed|cuda
     density_threshold: float = 0.0  # blocks below -> COO tail (needs hints)
     # cuda (tm, tk): a 32-wide k slice is one 128-byte line per tile row in
-    # float32 for K1, and 32 rows fill K2's 8 warps x 4-row register block
+    # float32 for K1, and 32 rows fill K2's 4 row groups x 8-row register block
     tile: tuple = (32, 32)
-    spmm_bn: int = 128  # the reference's Pallas N-tile; K2 picks its own from n
+    spmm_bn: int = 128  # the reference's Pallas N-tile; K2's CUDA CTAs take 128 columns
     prepack: bool = False  # caller passes prepacked tiles to __call__
     dtype: object = None  # torch dtype to cast values and x to (None = keep)
 
@@ -252,6 +252,7 @@ class StagedKernel:
         self.descs = dense_descs
         self.classes = None
         self.tiled: Optional[TiledPattern] = None
+        self.schedules: dict = {}  # cuda backend on a card: dtype -> kernel schedule
         if self.backend in ("grouped", "bucketed"):
             self.classes = _group_by_shape(
                 dense_descs, self.m, bucket=self.backend == "bucketed"
@@ -339,6 +340,14 @@ class StagedKernel:
             row_ptr = self._tensor(t.row_ptr, torch.int32)
             prepack = self.opts.prepack
             bn = self.opts.spmm_bn
+            # the kernels' split of the tile table: structure only, so once
+            # for each dtype the call may see
+            dtypes = ((self.opts.dtype,) if self.opts.dtype is not None
+                      else (torch.float32, torch.bfloat16))
+            self.schedules = schedules = {
+                dt: kops.bsr_schedule(kind, row_ptr, t.tm, t.tk, self.n_cols or 1, dt)
+                for dt in dtypes if dev.type == "cuda"
+            }
 
             def fn(val, x):
                 # with prepack the caller already packed via self.pack()
@@ -346,10 +355,12 @@ class StagedKernel:
                 xp = with_zero_row(x)[x_src]
                 if kind == "spmv":
                     yp = kops.bsr_spmv(tiles, row_ids, col_ids, xp, m_pad=m_pad,
-                                       row_ptr=row_ptr, device=dev)
+                                       row_ptr=row_ptr, schedule=schedules.get(xp.dtype),
+                                       device=dev)
                 else:
                     yp = kops.bsr_spmm(tiles, row_ids, col_ids, xp, m_pad=m_pad, bn=bn,
-                                       row_ptr=row_ptr, device=dev)
+                                       row_ptr=row_ptr, schedule=schedules.get(xp.dtype),
+                                       device=dev)
                 return add_coo(yp[y_src], val, x)
 
             return fn

@@ -6,10 +6,13 @@
 #include <c10/cuda/CUDAStream.h>
 
 void bsr_spmv_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
-                     void* y, int n_row_tiles, int tm, int tk, bool bf16, cudaStream_t stream);
+                     void* y, const int* schedule, int n_workers, float* partial, int tm, int tk,
+                     bool bf16, cudaStream_t stream);
 void bsr_spmm_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
-                     void* y, int n_row_tiles, int tm, int tk, int n, bool bf16,
-                     cudaStream_t stream);
+                     void* y, const int* schedule, int n_workers, float* partial,
+                     int n_row_tiles, int tm, int tk, int n, bool bf16, cudaStream_t stream);
+int bsr_spmv_workers(int tm, int tk, bool bf16);
+int bsr_spmm_workers(int tm, int n);
 void bsr_sdd_launch(const void* a, const void* b, const int* rows, const int* cols, void* out,
                     int nnz, int bm, int bn, int K, int n_row_blocks, int64_t b_stride_k,
                     int64_t b_stride_c, bool bf16, cudaStream_t stream);
@@ -36,22 +39,44 @@ void check_operands(const torch::Tensor& tiles, const torch::Tensor& row_ptr,
               "col_ids must be (nb,)");
 }
 
+// The tile split (n_workers, 5) int32 and the float32 scratch of at least
+// 2 * n_workers * elems values that the kernels write cut row tiles to.
+void check_schedule(const torch::Tensor& tiles, const torch::Tensor& schedule,
+                    const torch::Tensor& partial, int64_t elems) {
+  for (const torch::Tensor* t : {&schedule, &partial}) {
+    TORCH_CHECK(t->is_cuda() && t->device() == tiles.device(),
+                "schedule and partial must lie on the operands' device");
+    TORCH_CHECK(t->is_contiguous(), "schedule and partial must be contiguous");
+  }
+  TORCH_CHECK(schedule.scalar_type() == at::kInt && schedule.dim() == 2 &&
+                  schedule.size(0) >= 1 && schedule.size(1) == 5,
+              "schedule must be (n_workers, 5) int32");
+  TORCH_CHECK(partial.scalar_type() == at::kFloat &&
+                  partial.numel() >= 2 * schedule.size(0) * elems,
+              "partial must be float32 with 2 * n_workers * tm (* n) values");
+}
+
 void bsr_spmv(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
-              torch::Tensor x, torch::Tensor y) {
+              torch::Tensor x, torch::Tensor y, torch::Tensor schedule, torch::Tensor partial) {
   check_operands(tiles, row_ptr, col_ids, x, y);
   const int tm = tiles.size(1), tk = tiles.size(2);
   const int n_row_tiles = row_ptr.size(0) - 1;
   TORCH_CHECK(x.dim() == 1 && x.size(0) % tk == 0, "x must be (k_pad,) with k_pad % tk == 0");
   TORCH_CHECK(y.dim() == 1 && y.size(0) == static_cast<int64_t>(n_row_tiles) * tm,
               "y must be (n_row_tiles * tm,)");
+  check_schedule(tiles, schedule, partial, tm);
+  if (n_row_tiles == 0) return;
   const c10::cuda::CUDAGuard guard(tiles.device());
   bsr_spmv_launch(tiles.data_ptr(), row_ptr.data_ptr<int>(), col_ids.data_ptr<int>(),
-                  x.data_ptr(), y.data_ptr(), n_row_tiles, tm, tk,
-                  tiles.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+                  x.data_ptr(), y.data_ptr(), schedule.data_ptr<int>(), schedule.size(0),
+                  partial.data_ptr<float>(), tm, tk, tiles.scalar_type() == at::kBFloat16,
+                  c10::cuda::getCurrentCUDAStream());
 }
 
+// schedule and partial are read by the float32 body only; bfloat16 takes
+// them empty.
 void bsr_spmm(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
-              torch::Tensor x, torch::Tensor y) {
+              torch::Tensor x, torch::Tensor y, torch::Tensor schedule, torch::Tensor partial) {
   check_operands(tiles, row_ptr, col_ids, x, y);
   const int tm = tiles.size(1), tk = tiles.size(2);
   const int n_row_tiles = row_ptr.size(0) - 1;
@@ -59,10 +84,24 @@ void bsr_spmm(torch::Tensor tiles, torch::Tensor row_ptr, torch::Tensor col_ids,
   TORCH_CHECK(y.dim() == 2 && y.size(0) == static_cast<int64_t>(n_row_tiles) * tm &&
                   y.size(1) == x.size(1),
               "y must be (n_row_tiles * tm, n)");
+  const bool bf16 = tiles.scalar_type() == at::kBFloat16;
+  if (!bf16) check_schedule(tiles, schedule, partial, static_cast<int64_t>(tm) * x.size(1));
   const c10::cuda::CUDAGuard guard(tiles.device());
   bsr_spmm_launch(tiles.data_ptr(), row_ptr.data_ptr<int>(), col_ids.data_ptr<int>(),
-                  x.data_ptr(), y.data_ptr(), n_row_tiles, tm, tk, x.size(1),
-                  tiles.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+                  x.data_ptr(), y.data_ptr(), bf16 ? nullptr : schedule.data_ptr<int>(),
+                  bf16 ? 0 : schedule.size(0), bf16 ? nullptr : partial.data_ptr<float>(),
+                  n_row_tiles, tm, tk, x.size(1), bf16, c10::cuda::getCurrentCUDAStream());
+}
+
+// Workers of K1 / K2's float32 body on `device`: the schedule's length.
+int64_t spmv_workers(int64_t tm, int64_t tk, bool bf16, int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  return bsr_spmv_workers(tm, tk, bf16);
+}
+
+int64_t spmm_workers(int64_t tm, int64_t n, int64_t device) {
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  return bsr_spmm_workers(tm, n);
 }
 
 // a (M, K); b the (K, N / bn, bn) block-column view of the (K, N) operand,
@@ -108,5 +147,7 @@ void bsr_sdd(torch::Tensor a, torch::Tensor b, torch::Tensor rows, torch::Tensor
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bsr_spmv", &bsr_spmv, "K1: block-sparse SpMV into y (launches on the current stream)");
   m.def("bsr_spmm", &bsr_spmm, "K2: block-sparse SpMM into y (launches on the current stream)");
+  m.def("spmv_workers", &spmv_workers, "K1's schedule length for (tm, tk, bf16, device)");
+  m.def("spmm_workers", &spmm_workers, "K2 float32's schedule length for (tm, n, device)");
   m.def("bsr_sdd", &bsr_sdd, "K3: sampled dense-dense blocks into out (launches on the current stream)");
 }

@@ -28,114 +28,257 @@
 // once per tile. On the first path a panel is 2 row tiles and a run mostly
 // one tile. Panels without tiles only write zeros.
 //
-// float32: as first ported, one CTA per (row tile, 8 * RM rows, 32 * CN
-// columns), float32 FMAs from shared memory.
+// float32. What bounds it: operations. Float32 stays on the FMA pipes
+// (TF32 tensor cores would miss the 1e-5 tolerance), 67 TFLOP/s on the card;
+// at u (tm = tk = 32, n = 128) that is 0.096 ms, against 0.030 ms for the
+// bytes. The first port ran at 14% of it: one CTA per row tile (a 4x spread
+// of tiles at u), two FMAs per 4-byte shared-memory load, and each 32-deep
+// slice loaded synchronously behind two barriers. Here the tile table is
+// split evenly over one wave of workers (six CTAs of 64 threads on each
+// SM; schedule.cuh), a CTA being one worker's (32-row block, 128-column
+// chunk). Each thread keeps an 8 x 8 block of the output in registers and
+// reads both operands with 16-byte shared-memory loads, 256 FMAs for every
+// 16 loads; the (tile, 16-deep slice of X) units come through a 3-stage
+// ring, A by cp.async and, at n = 128, X by one bulk copy a unit (so that
+// the copies do not queue with the shared-memory loads), the column index
+// one unit ahead, so the next units load while one is multiplied. Row
+// tiles that the split cuts go through the scratch slots and a second,
+// dependent launch, as in K1, in a fixed order. What is left between it and
+// the FMA rate is shared-memory traffic: 8 x 8 is the largest block the
+// registers hold with six CTAs on an SM, and a thread still loads one
+// 16-byte value for every four FMAs.
 #include <cuda_runtime.h>
 #include <c10/cuda/CUDAException.h>
 
+#include <algorithm>
 #include <cstdint>
 
+#include "bulk.cuh"
 #include "runs.cuh"
+#include "schedule.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- float32
-constexpr int kThreads = 256;  // 8 warps: 8 row groups x 32 column lanes
-constexpr int kBK = 32;        // depth staged in shared memory per step
+constexpr int kF32Threads = 64;  // 2 warps: 4 row groups x 16 column groups
+constexpr int kF32CtasPerSm = 6;
+constexpr int kBM = 32;           // rows of a CTA (one row tile, or 32 rows of a taller one)
+constexpr int kBN = 128;          // columns of a CTA
+constexpr int kBK = 16;           // depth of one stage
+constexpr int kStages = 3;        // ring: two stages in flight while one is multiplied
+constexpr int kLdA = kBK + 4;     // padded A rows (16-byte aligned)
+constexpr int kAFloats = kBM * kLdA;
+constexpr int kStageFloats = kAFloats + kBK * kBN;
+constexpr int kF32Smem = kStages * kStageFloats * 4 + kStages * 8;  // and a barrier a stage
 
-// RM rows per warp (BM = 8 * RM), CN columns per lane (BN = 32 * CN).
-template <int RM, int CN>
-__global__ void __launch_bounds__(kThreads)
-bsr_spmm_kernel(const float* __restrict__ tiles, const int* __restrict__ row_ptr,
-                const int* __restrict__ col_ids, const float* __restrict__ x,
-                float* __restrict__ y, int tm, int tk, int n, int m_blocks) {
-  constexpr int BM = 8 * RM;
-  constexpr int BN = 32 * CN;
-  __shared__ float As[kBK][BM + 1];  // tile slice, transposed; +1 spreads the stores over banks
-  __shared__ float Xs[kBK][BN];
+// 4 bytes from global to shared memory, asynchronously; zero where !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(runs::smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 
-  const int rt = blockIdx.x / m_blocks;
-  const int m0 = (blockIdx.x % m_blocks) * BM;
-  const int j0 = blockIdx.y * BN;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  const int rows = min(BM, tm - m0);
-  const int cols = min(BN, n - j0);
-  const int b0 = row_ptr[rt];
-  const int b1 = row_ptr[rt + 1];
-
-  float acc[RM][CN];
+// One stage: kBM rows x kBK depth of a tile (A, row-major, padded rows) and
+// the kBK x kBN block of X it meets. VEC: 16-byte copies (tk % 4 == 0,
+// n % 4 == 0, aligned operands); else 4-byte ones. BULK: the caller brings
+// X in with one bulk copy. Out-of-range values are zeros, so they add
+// nothing.
+template <bool VEC, bool BULK>
+__device__ __forceinline__ void load_stage(float* st, const float* tile, const float* xb, int rows,
+                                           int kc, int tk, int n, int cols) {
+  float* As = st;
+  float* Xs = st + kAFloats;
+  if constexpr (VEC) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int q = 0; q < CN; ++q) acc[i][q] = 0.f;
-
-  for (int b = b0; b < b1; ++b) {
-    const float* tile = tiles + static_cast<size_t>(b) * tm * tk + static_cast<size_t>(m0) * tk;
-    const float* xb = x + static_cast<size_t>(col_ids[b]) * tk * n + j0;
-    for (int k0 = 0; k0 < tk; k0 += kBK) {
-      const int kc = min(kBK, tk - k0);
-      for (int e = threadIdx.x; e < BM * kBK; e += kThreads) {
-        const int row = e / kBK;
-        const int kk = e % kBK;
-        As[kk][row] = (row < rows && kk < kc) ? tile[static_cast<size_t>(row) * tk + k0 + kk] : 0.f;
-      }
-      for (int e = threadIdx.x; e < kBK * BN; e += kThreads) {
-        const int kk = e / BN;
-        const int c = e % BN;
-        Xs[kk][c] = (kk < kc && c < cols) ? xb[static_cast<size_t>(k0 + kk) * n + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kc; ++kk) {
-        float a[RM];
-        float xv[CN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) a[i] = As[kk][ty * RM + i];
-#pragma unroll
-        for (int q = 0; q < CN; ++q) xv[q] = Xs[kk][tx + 32 * q];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int q = 0; q < CN; ++q) acc[i][q] = fmaf(a[i], xv[q], acc[i][q]);
-      }
-      __syncthreads();
+    for (int j = 0; j < kBM * kBK / 4 / kF32Threads; ++j) {
+      const int c = threadIdx.x + j * kF32Threads;
+      const int row = c / (kBK / 4), k4 = (c % (kBK / 4)) * 4;
+      const bool ok = row < rows && k4 < kc;
+      runs::cp_async16(As + row * kLdA + k4, ok ? tile + static_cast<int64_t>(row) * tk + k4 : tile,
+                       ok);
     }
-  }
-
+    if constexpr (!BULK) {
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = ty * RM + i;
-    if (row >= rows) continue;
-    float* yrow = y + (static_cast<size_t>(rt) * tm + m0 + row) * n + j0;
-#pragma unroll
-    for (int q = 0; q < CN; ++q) {
-      const int c = tx + 32 * q;
-      if (c < cols) yrow[c] = acc[i][q];
+      for (int j = 0; j < kBK * kBN / 4 / kF32Threads; ++j) {
+        const int c = threadIdx.x + j * kF32Threads;
+        const int kr = c / (kBN / 4), c4 = (c % (kBN / 4)) * 4;
+        const bool ok = kr < kc && c4 < cols;
+        runs::cp_async16(Xs + kr * kBN + c4, ok ? xb + static_cast<int64_t>(kr) * n + c4 : xb,
+                         ok);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < kBM * kBK; e += kF32Threads) {
+      const int row = e / kBK, k = e % kBK;
+      const bool ok = row < rows && k < kc;
+      cp_async4(As + row * kLdA + k, ok ? tile + static_cast<int64_t>(row) * tk + k : tile, ok);
+    }
+    for (int e = threadIdx.x; e < kBK * kBN; e += kF32Threads) {
+      const int kr = e / kBN, c = e % kBN;
+      const bool ok = kr < kc && c < cols;
+      cp_async4(Xs + kr * kBN + c, ok ? xb + static_cast<int64_t>(kr) * n + c : xb, ok);
     }
   }
 }
 
-template <int RM, int CN>
-void launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x, void* y,
-            int n_row_tiles, int tm, int tk, int n, cudaStream_t stream) {
-  const int m_blocks = (tm + 8 * RM - 1) / (8 * RM);
-  const dim3 grid(n_row_tiles * m_blocks, (n + 32 * CN - 1) / (32 * CN));
-  bsr_spmm_kernel<RM, CN><<<grid, kThreads, 0, stream>>>(
+// acc (8 rows x 8 columns a thread) += the stage's A (kBM x kBK) @ X (kBK x kBN).
+// A thread's rows are 8 * ty .. +7, its columns 4 * tx .. +3 and 64 + 4 * tx
+// .. +3: every shared-memory read is 16 bytes, 16 of them for 256 FMAs.
+__device__ __forceinline__ void multiply_stage(float (&acc)[8][8], const float* st, int tx,
+                                               int ty) {
+  const float* As = st + ty * 8 * kLdA;
+  const float* Xs = st + kAFloats + tx * 4;
+#pragma unroll
+  for (int k = 0; k < kBK; k += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(As + i * kLdA + k);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 x0 = *reinterpret_cast<const float4*>(Xs + (k + q) * kBN);
+      const float4 x1 = *reinterpret_cast<const float4*>(Xs + (k + q) * kBN + 64);
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, xv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// One CTA per (worker, 128-column chunk, 32-row block of the row tile).
+// The worker's tiles come as units of (tile, kBK-deep slice), through a ring
+// of kStages shared-memory stages; when the walk leaves a row tile, the
+// accumulator goes to y (or to the worker's scratch slot, for a row tile the
+// split cuts) straight from registers while the next stages load. BULK
+// (VEC, n == kBN, tk % kBK == 0): a unit's X block is one contiguous 8 KB
+// stretch of x, brought in by one bulk copy on the stage's barrier.
+template <bool VEC, bool BULK>
+__global__ void __launch_bounds__(kF32Threads, kF32CtasPerSm)
+bsr_spmm_f32_kernel(const float* __restrict__ tiles, const int* __restrict__ row_ptr,
+                    const int* __restrict__ col_ids, const float* __restrict__ x,
+                    float* __restrict__ y, const int* __restrict__ schedule,
+                    float* __restrict__ partial, int tm, int tk, int n) {
+  extern __shared__ __align__(16) float smem[];
+  sched::launch_dependents();
+  const int w = blockIdx.x;
+  const sched::Range g = sched::load(schedule, w);
+  if (g.r0 >= g.r1) return;
+  const int j0 = blockIdx.y * kBN;
+  const int m0 = blockIdx.z * kBM;
+  const int rows = min(kBM, tm - m0);
+  const int cols = min(kBN, n - j0);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int n_kc = (tk + kBK - 1) / kBK;
+  const int n_units = (g.t1 - g.t0) * n_kc;
+  const int64_t tile_elems = static_cast<int64_t>(tm) * tk;
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageFloats);
+  if (BULK) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) bulk::init(full + s);
+      bulk::fence_init();
+    }
+    __syncthreads();
+  }
+  // stage the unit u: tile t0 + u / n_kc at depth (u % n_kc) * kBK, whose
+  // column index `cid` the caller fetched one unit ahead
+  auto load_unit = [&](int u, int cid) {
+    const int b = g.t0 + u / n_kc, k0 = (u % n_kc) * kBK;
+    float* st = smem + (u % kStages) * kStageFloats;
+    const float* xb = x + (static_cast<int64_t>(cid) * tk + k0) * n + j0;
+    load_stage<VEC, BULK>(st, tiles + b * tile_elems + static_cast<int64_t>(m0) * tk + k0, xb,
+                          rows, min(kBK, tk - k0), tk, n, cols);
+    if (BULK && threadIdx.x == 0) {
+      bulk::expect(full + u % kStages, kBK * kBN * 4);
+      bulk::copy(st + kAFloats, xb, kBK * kBN * 4, full + u % kStages);
+    }
+  };
+  auto cid_of = [&](int u) { return u < n_units ? col_ids[g.t0 + u / n_kc] : 0; };
+
+  float acc[8][8];
+  auto flush = [&](int r) {  // row tile r's block out of acc, then acc = 0
+    const int s = sched::slot(g, w, r);
+    float* out = (s < 0 ? y + static_cast<int64_t>(r) * tm * n
+                        : partial + static_cast<int64_t>(s) * tm * n) +
+                 static_cast<int64_t>(m0) * n + j0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = ty * 8 + i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = h * 64 + tx * 4;
+        float* p = out + static_cast<int64_t>(row) * n + c;
+        if (row < rows) {
+          if (VEC && c < cols) {
+            *reinterpret_cast<float4*>(p) =
+                make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          } else if (!VEC) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (c + j < cols) p[j] = acc[i][4 * h + j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][4 * h + j] = 0.f;
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  int cid = cid_of(0);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    const int next = cid_of(s + 1);
+    if (s < n_units) load_unit(s, cid);
+    runs::cp_async_commit();
+    cid = next;
+  }
+  int r = g.r0;
+  int r_end = row_ptr[r + 1];
+  for (int u = 0; u < n_units; ++u) {
+    runs::cp_async_wait<kStages - 2>();
+    if (BULK) bulk::wait(full + u % kStages, (u / kStages) & 1);
+    __syncthreads();  // unit u has landed; every thread is done with unit u - 1's stage
+    {
+      const int ahead = u + kStages - 1;
+      const int next = cid_of(ahead + 1);
+      if (ahead < n_units) load_unit(ahead, cid);
+      runs::cp_async_commit();
+      cid = next;
+    }
+    if (u % n_kc == 0) {
+      const int b = g.t0 + u / n_kc;
+      while (b >= r_end) {  // leaving row tile r (and any empty ones after it)
+        flush(r);
+        r_end = row_ptr[++r + 1];
+      }
+    }
+    multiply_stage(acc, smem + (u % kStages) * kStageFloats, tx, ty);
+  }
+  runs::cp_async_wait<0>();
+  flush(r);
+  while (++r < g.r1) flush(r);  // the empty row tiles at the end (last worker)
+}
+
+template <bool VEC, bool BULK>
+void launch_f32(const void* tiles, const int* row_ptr, const int* col_ids, const void* x, void* y,
+                const int* schedule, int n_workers, float* partial, int tm, int tk, int n,
+                cudaStream_t stream) {
+  const dim3 grid(n_workers, (n + kBN - 1) / kBN, (tm + kBM - 1) / kBM);
+  TORCH_CHECK(grid.y < 65536 && grid.z < 65536, "bsr_spmm: too many column chunks or row blocks");
+  bsr_spmm_f32_kernel<VEC, BULK><<<grid, kF32Threads, kF32Smem, stream>>>(
       static_cast<const float*>(tiles), row_ptr, col_ids, static_cast<const float*>(x),
-      static_cast<float*>(y), tm, tk, n, m_blocks);
+      static_cast<float*>(y), schedule, partial, tm, tk, n);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
-}
-
-template <int RM>
-void launch_cn(int cn, const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
-               void* y, int n_row_tiles, int tm, int tk, int n, cudaStream_t stream) {
-  if (cn == 1)
-    launch<RM, 1>(tiles, row_ptr, col_ids, x, y, n_row_tiles, tm, tk, n, stream);
-  else if (cn == 2)
-    launch<RM, 2>(tiles, row_ptr, col_ids, x, y, n_row_tiles, tm, tk, n, stream);
-  else
-    launch<RM, 4>(tiles, row_ptr, col_ids, x, y, n_row_tiles, tm, tk, n, stream);
+  sched::combine<float>(schedule, row_ptr, partial, static_cast<float*>(y), n_workers,
+                        static_cast<int64_t>(tm) * n, stream);
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 // --------------------------------------------------------------- bfloat16
@@ -213,13 +356,21 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
+// Workers of the float32 body for tiles of tm rows and n columns on the
+// current device: one wave of CTAs (kF32CtasPerSm on each SM) over the
+// column chunks and row blocks.
+int bsr_spmm_workers(int tm, int n) {
+  const int blocks = ((n + kBN - 1) / kBN) * ((tm + kBM - 1) / kBM);
+  return std::max(1, (sched::sm_count() * kF32CtasPerSm + blocks - 1) / blocks);
+}
+
 // tiles (nb, tm, tk), row_ptr (n_row_tiles + 1,), col_ids (nb,), x (k_pad, n),
-// y (n_row_tiles * tm, n); all contiguous on one device, checked by the caller.
-// A float32 CTA takes 32, 64 or 128 columns, the fewest that cover n; a
-// bfloat16 CTA always takes 128.
+// y (n_row_tiles * tm, n); all contiguous on one device, checked by the
+// caller. float32 also takes schedule (n_workers, 5) and partial
+// (2 * n_workers * tm * n,) float32 scratch; bfloat16 walks row_ptr alone.
 void bsr_spmm_launch(const void* tiles, const int* row_ptr, const int* col_ids, const void* x,
-                     void* y, int n_row_tiles, int tm, int tk, int n, bool is_bf16,
-                     cudaStream_t stream) {
+                     void* y, const int* schedule, int n_workers, float* partial,
+                     int n_row_tiles, int tm, int tk, int n, bool is_bf16, cudaStream_t stream) {
   if (n_row_tiles == 0 || n == 0) return;
   if (is_bf16) {
     // 16-byte loads and stores need 16-byte aligned rows of tiles, x and y
@@ -231,11 +382,14 @@ void bsr_spmm_launch(const void* tiles, const int* row_ptr, const int* col_ids, 
       launch_runs<false>(tiles, row_ptr, col_ids, x, y, n_row_tiles, tm, tk, n, stream);
     return;
   }
-  const int cn = n <= 32 ? 1 : n <= 64 ? 2 : 4;
-  if (tm <= 8)
-    launch_cn<1>(cn, tiles, row_ptr, col_ids, x, y, n_row_tiles, tm, tk, n, stream);
-  else if (tm <= 16)
-    launch_cn<2>(cn, tiles, row_ptr, col_ids, x, y, n_row_tiles, tm, tk, n, stream);
+  const bool vec = tk % 4 == 0 && n % 4 == 0 && aligned16(tiles) && aligned16(x) && aligned16(y);
+  if (vec && n == kBN && tk % kBK == 0)
+    launch_f32<true, true>(tiles, row_ptr, col_ids, x, y, schedule, n_workers, partial, tm, tk, n,
+                           stream);
+  else if (vec)
+    launch_f32<true, false>(tiles, row_ptr, col_ids, x, y, schedule, n_workers, partial, tm, tk,
+                            n, stream);
   else
-    launch_cn<4>(cn, tiles, row_ptr, col_ids, x, y, n_row_tiles, tm, tk, n, stream);
+    launch_f32<false, false>(tiles, row_ptr, col_ids, x, y, schedule, n_workers, partial, tm, tk,
+                             n, stream);
 }

@@ -262,3 +262,107 @@ def test_cuda_bsr_spmm_runs_match_plain(tm, tk, n, dtype):
     ref = tref.bsr_spmm_ref(t, r, c, x, n_rows * tm)
     tol = 1e-5 if dtype == "float32" else 2e-2
     assert ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= tol
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tm,tk", [(8, 1536), (8, 40), (16, 24), (32, 32), (5, 16), (5, 7),
+                                   (40, 24), (100, 16)])
+def test_cuda_bsr_spmv_runs_match_plain(tm, tk, dtype):
+    """K1 on the run-structured tables of the K2 cases above: rows longer
+    than one pass of the lanes (tk = 1536), rows that are not whole 16-byte
+    vectors, tiles taller than a worker's rows, padding tiles past the last
+    row tile."""
+    tiles, rows, cols, n_rows = _run_tables(tm, tk, 9, seed=tm * tk + 1, pad=5)
+    dev = torch.device("cuda")
+    t = torch.as_tensor(tiles, device=dev).to(getattr(torch, dtype))
+    r, c = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    x = torch.randn(9 * tk, device=dev).to(t.dtype)
+    y = tops.bsr_spmv(t, r, c, x, m_pad=n_rows * tm, device=dev)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert _rel_err(y, tref.bsr_spmv_ref(t, r, c, x, n_rows * tm)) <= tol
+
+
+def _rel_err(y, ref):
+    return ((y.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ttesting.SKEWED)
+def test_cuda_skewed_tables_match_plain(kind, dtype):
+    """K1 and K2 on tables that stress the card's even split of the tile
+    table: a row tile with 90% of the tiles, fewer tiles than workers (a row
+    tile spread over more workers than it has tiles), one tile, and long runs
+    of empty row tiles."""
+    rng = np.random.default_rng(11)
+    rows, cols, n_rows = ttesting.skewed_tables(rng, kind, 9)
+    dev = torch.device("cuda")
+    tm, tk, n = 32, 32, 100
+    t = torch.as_tensor(rng.standard_normal((len(rows), tm, tk)), device=dev)
+    t = t.to(getattr(torch, dtype))
+    r, c = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    x = torch.randn(9 * tk, device=dev).to(t.dtype)
+    xm = torch.randn(9 * tk, n, device=dev).to(t.dtype)
+    y = tops.bsr_spmv(t, r, c, x, m_pad=n_rows * tm, device=dev)
+    ym = tops.bsr_spmm(t, r, c, xm, m_pad=n_rows * tm, device=dev)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert _rel_err(y, tref.bsr_spmv_ref(t, r, c, x, n_rows * tm)) <= tol
+    assert _rel_err(ym, tref.bsr_spmm_ref(t, r, c, xm, n_rows * tm)) <= tol
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["u", "nu"])
+def test_cuda_paper_tables_match_plain(name, dtype):
+    """K1 and K2 at the paper's matrices <50,50,500,u> and <100,100,500,nu>
+    (10 000 x 10 000, 20% in-block zeros), tile 32 x 32, with the schedule
+    the staged path builds once."""
+    from repro_torch.core import StagingOptions, stage_spmv, synthesize_paper
+
+    v = synthesize_paper(50 if name == "u" else 100, 50 if name == "u" else 100, 500,
+                         zeros_pct=20, uniform=name == "u", seed=0)
+    dev = torch.device("cuda")
+    ks = stage_spmv(v, StagingOptions(backend="cuda", dtype=getattr(torch, dtype)), device=dev)
+    t = ks.tiled
+    tiles = ks.pack(torch.as_tensor(v.val, device=dev))
+    r, c = torch.as_tensor(t.row_ids, device=dev), torch.as_tensor(t.col_ids, device=dev)
+    rp = torch.as_tensor(t.row_ptr, device=dev)
+    x = torch.randn(t.k_pad, device=dev).to(tiles.dtype)
+    xm = torch.randn(t.k_pad, 128, device=dev).to(tiles.dtype)
+    y = tops.bsr_spmv(tiles, r, c, x, m_pad=t.m_pad, row_ptr=rp,
+                      schedule=tops.bsr_schedule("spmv", rp, t.tm, t.tk, dtype=tiles.dtype),
+                      device=dev)
+    ym = tops.bsr_spmm(tiles, r, c, xm, m_pad=t.m_pad, row_ptr=rp,
+                       schedule=tops.bsr_schedule("spmm", rp, t.tm, t.tk, 128, tiles.dtype),
+                       device=dev)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert _rel_err(y, tref.bsr_spmv_ref(tiles, r, c, x, t.m_pad)) <= tol
+    assert _rel_err(ym, tref.bsr_spmm_ref(tiles, r, c, xm, t.m_pad)) <= tol
+
+
+@requires_cuda
+@pytest.mark.parametrize("kind", ["heavy", "few", "random"])
+def test_cuda_float32_launches_are_bit_identical(kind):
+    """Row tiles cut by the split are added in worker order, with no atomics:
+    two launches on the same inputs give the same bits."""
+    rng = np.random.default_rng(12)
+    if kind == "random":
+        tiles, rows, cols = _tables(60, 32, 32, 23, 9, seed=13, empty_rows=4)
+        n_rows = 23
+    else:
+        rows, cols, n_rows = ttesting.skewed_tables(rng, kind, 9)
+        tiles = rng.standard_normal((len(rows), 32, 32)).astype(np.float32)
+    dev = torch.device("cuda")
+    t = torch.as_tensor(tiles, device=dev)
+    r, c = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    x = torch.randn(9 * 32, device=dev)
+    xm = torch.randn(9 * 32, 128, device=dev)
+    m_pad = n_rows * 32
+    ys = [tops.bsr_spmv(t, r, c, x, m_pad=m_pad, device=dev) for _ in range(2)]
+    yms = [tops.bsr_spmm(t, r, c, xm, m_pad=m_pad, device=dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(yms[0], yms[1])
