@@ -44,33 +44,47 @@ Phases, each printing its lines:
             padding slots with out-of-range columns, b as a strided expert
             stack), on random slots and on runs of 1-9 slots of one column
             block (runs across a CTA's group of slots), float32 and
-            bfloat16 (bm = 40 and 100 too);
+            bfloat16 (bm = 40 and 100 too). In float32 (3xTF32 on the
+            tensor cores) also at bm = 1, 5, 8, 16, 24, 40, 100 (bn 200,
+            K 44) and at the MoE's bm 8, bn 1536, K 5120, each float32
+            table through both bodies: cp.async copies, and scalar copies
+            on the same values in a copy of a that starts 4 bytes past a
+            16-byte boundary, as ops.sdd_body picks them (the body
+            printed); a second launch must give the same bits;
 6. moe      drives the port's second path: DeepSeek-V2-236B's MoE layer at
             its published widths (d_model 5120, 160 routed experts of
-            d_ff 1536, top-6, 2 shared experts, swiglu), dropless, params
-            in bfloat16 from --seed, through moe_apply at prefill (B=4,
-            S=512) and decode (B=64, S=1). The launch counts are zeroed just
-            before and read just after; K3 and K2 must have launched. The
-            output is held against the capacity path (plain einsums) with
-            capacity_factor = E / top_k, which drops nothing, and K3 on the
-            path's own prefill tables against its plain version on 64
-            sampled slots;
-7. moe times  the MoE layer's time (prefill, decode) and its device time by
-            kernel; at the prefill and decode tables as the path builds
-            them, K3 (bfloat16; float32 too at prefill) and K2 at the dsd
-            tables (tm=8, tk=1536, n=5120, m_pad = M), each beside its
-            bound, its plain version (K3 on 64 sampled slots, K2 on the
-            tiles of 16 whole 64-row panels, each against the timed launch's
-            own output) and the library call in the kernel's dtype:
-            torch.sparse.sampled_addmm (K3) and torch.sparse_csr_tensor(...)
-            @ x (K2, cuSPARSE; in float32 too), each over the element-level
-            CSR.
+            d_ff 1536, top-6, 2 shared experts, swiglu), dropless, through
+            moe_apply at prefill (B=4, S=512) and decode (B=64, S=1), in
+            two passes: params in bfloat16 (7.6 GB), then, the bfloat16
+            layer freed, in float32 (15.3 GB, the JAX config's
+            param_dtype), each from --seed. The launch counts are zeroed
+            just before each pass and read just after; K3 and K2 must have
+            launched. The output is held against the capacity path (plain
+            einsums, TF32 off) with capacity_factor = E / top_k, which drops
+            nothing, in the pass's dtype, and K3 on the path's own prefill
+            tables against its plain version on 64 sampled slots;
+7. moe times  after each pass of phase 6, in its dtype: the MoE layer's time
+            (prefill, decode) and its device time by kernel; at the prefill
+            and decode tables as the path builds them, K3 (its body
+            printed; a second launch must give the first one's bits; at
+            prefill also on the same slots ordered by expert, one run per
+            expert) and K2 at the dsd tables (tm=8, tk=1536, n=5120, m_pad
+            = M), each beside its bound, its plain version (K3 on 64
+            sampled slots, K2 on the tiles of 16 whole 64-row panels, each
+            against the timed launch's own output) and the library call in
+            the kernel's dtype: torch.sparse.sampled_addmm (K3) and
+            torch.sparse_csr_tensor(...) @ x (K2, cuSPARSE; float32 beside
+            bfloat16), each over the element-level CSR.
 
+Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
+larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
+fma_bound_ms beside it counts float32 on the FMA pipes (67 TFLOP/s).
 Tolerance: max|out - ref| / max|ref| <= 1e-5 in float32, 2e-2 in bfloat16.
 Any failure raises. The last two lines are the `kernels` JSON object (K1
 and K2 at u in float32 as the rows' own keys, and their other rows as
 u_bf16_*, nu_f32_* and nu_bf16_* keys; K3 at the MoE prefill tables in
-float32, and moe_*_bf16_* keys) and {"ok": true, "device": {...}}.
+float32, launched by the float32 pass; moe_{prefill,decode}_{bf16,f32}_*
+keys for K2 and K3) and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -89,7 +103,9 @@ ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+# float32: 3xTF32, three TF32 products (494.7 TFLOP/s) for each float32-accurate one
+PEAK_OPS_PER_S = {"torch.float32": 494.7e12 / 3, "torch.bfloat16": 989e12}
+FMA_OPS_PER_S = 67e12  # float32 on the FMA pipes: the bound before 3xTF32
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
 
 KERNELS = {
@@ -250,15 +266,33 @@ def same_bits(label: str, first, again) -> None:
         raise AssertionError(f"{label}: two launches on the same inputs differ")
 
 
-def bound_ms(nbytes: int, ops: int, dtype) -> tuple[float, str]:
-    """The least time the card could take: bytes over HBM bandwidth or
-    operations over the dtype's peak, whichever is larger."""
-    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-               (ops / PEAK_OPS_PER_S[str(dtype)] * 1e3, "operations"))
+def bound_fields(nbytes: int, ops: int, dtype) -> dict:
+    """The least time the card could take: ``bound_ms``, bytes over HBM
+    bandwidth or operations over the dtype's peak, whichever is larger, and
+    ``bound_by``; in float32 also ``fma_bound_ms``, the same with float32 on
+    the FMA pipes (the yardstick before 3xTF32)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = max((t_bytes, "bytes"),
+                     (ops / PEAK_OPS_PER_S[str(dtype)] * 1e3, "operations"))
+    fields = dict(bound_ms=b_ms, bound_by=b_by)
+    if str(dtype) == "torch.float32":
+        fields["fma_bound_ms"] = max(t_bytes, ops / FMA_OPS_PER_S * 1e3)
+    return fields
+
+
+def bound_text(f: dict, nbytes: int, ops: int) -> str:
+    fma = f" fma_bound_ms={f['fma_bound_ms']:.4f}" if "fma_bound_ms" in f else ""
+    return f"bound_ms={f['bound_ms']:.4f} ({f['bound_by']}: {nbytes} B, {ops} ops){fma}"
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def body_label(dtype, body: str) -> str:
+    """K3's body as printed: its products and its copies."""
+    products = "3xTF32" if str(dtype) == "torch.float32" else "bfloat16"
+    return f"{products} mma.sync, {body} copies"
 
 
 def phase_sdd(rng, torch, kops, kref):
@@ -287,6 +321,11 @@ def phase_sdd(rng, torch, kops, kref):
         ("runs", 40, 136, 96, torch.bfloat16),
         ("runs", 100, 72, 40, torch.bfloat16),
     ]
+    # float32 on both bodies: groups of 64 to 2 slots, one slot of 40 rows and
+    # two CTAs to a slot of 100, bn past 128 and ragged, K not 32-deep; the
+    # MoE's blocks at its depth
+    cases += [("runs", bm, 200, 44, torch.float32) for bm in (1, 5, 8, 16, 24, 40, 100)]
+    cases += [("runs", 8, 1536, 5120, torch.float32)]
     dev = torch.device("cuda")
     for kind, bm, bn, K, dtype in cases:
         n_cb, pad = 7, 3
@@ -300,14 +339,24 @@ def phase_sdd(rng, torch, kops, kref):
         r = torch.as_tensor(rows.astype(np.int32), device=dev)
         c = torch.as_tensor(cols.astype(np.int32), device=dev)
         a = torch.as_tensor(rng.standard_normal((n_rb * bm, K)), device=dev).to(dtype)
+        operands = [a]
+        if dtype == torch.float32:  # the same values 4 bytes past a 16-byte boundary
+            operands.append(torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape))
         w = torch.as_tensor(rng.standard_normal((n_cb, K, bn)), device=dev).to(dtype)
         stacked = w.permute(1, 0, 2).reshape(K, n_cb * bn)
         want = kref.bsr_sdd_ref(a, stacked, r, c, bm, bn)
         tag = f"{kind} slots bm={bm} bn={bn} K={K} {str(dtype)[6:]}"
         for layout, b in (("stacked", stacked), ("expert stack view", w.permute(1, 0, 2))):
-            out = kops.bsr_sdd(a, b, r, c, bm=bm, bn=bn, device=dev)
-            torch.cuda.synchronize()
-            check(f"bsr_sdd {tag} ({layout}, {pad} padding slots)", out, want, dtype)
+            for a_in in operands:
+                body = kops.sdd_body(a_in, b.view(K, n_cb, bn) if b.dim() == 2 else b)
+                out = kops.bsr_sdd(a_in, b, r, c, bm=bm, bn=bn, device=dev)
+                torch.cuda.synchronize()
+                label = f"bsr_sdd {tag} ({layout}, {pad} padding slots, {body_label(dtype, body)})"
+                check(label, out, want, dtype)
+                if dtype == torch.float32:
+                    if a_in is not a and body != "scalar":
+                        raise RuntimeError(f"{label}: a shifted a must take the scalar body")
+                    same_bits(label, out, kops.bsr_sdd(a_in, b, r, c, bm=bm, bn=bn, device=dev))
 
 
 def moe_configs():
@@ -331,22 +380,25 @@ def sdd_tables(tmoe, p, x, cfg):
     return buf.reshape(-1, x.shape[-1]), topo, topo.row_indices, topo.column_indices
 
 
-def phase_moe(args, torch, kops, kref):
+def phase_moe(args, torch, kops, kref, dtype):
+    """Phase 6 in ``dtype``: the dropless layer at full width through
+    moe_apply, checked; returns what phase 7 times and the launch counts."""
     from repro_torch.models import moe as tmoe
 
-    print("phase 6: DeepSeek-V2-236B MoE layer at full width, dropless (bfloat16)")
+    dname = str(dtype)[6:]
+    print(f"phase 6: DeepSeek-V2-236B MoE layer at full width, dropless ({dname})")
     cfg, cfg_cap = moe_configs()
     mc = cfg.moe
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
-    p = tmoe.moe_init(gen, cfg, dtype=torch.bfloat16, device=dev)
+    p = tmoe.moe_init(gen, cfg, dtype=dtype, device=dev)
     torch.cuda.synchronize()
-    print(f"  params: {nbytes(*p.values()) / 1e9:.3f} GB in bfloat16, drawn in "
+    print(f"  params: {nbytes(*p.values()) / 1e9:.3f} GB in {dname}, drawn in "
           f"{time.perf_counter() - t0:.2f} s (d_model={cfg.d_model} experts={mc.num_experts} "
           f"top_k={mc.top_k} d_ff={mc.d_ff} shared={mc.num_shared}x{mc.shared_d_ff})")
     xs = {
-        name: torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        name: torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(dtype)
         for name, (B, S) in (("prefill", (4, 512)), ("decode", (64, 1)))
     }
     torch.cuda.reset_peak_memory_stats()
@@ -354,11 +406,12 @@ def phase_moe(args, torch, kops, kref):
     outs = {name: tmoe.moe_apply(p, x, cfg) for name, x in xs.items()}
     torch.cuda.synchronize()
     launches = dict(kops.launches)
-    print(f"  launches on the MoE path: {launches}")
+    print(f"  launches on the MoE path ({dname}): {launches}")
     for name in ("bsr_sdd", "bsr_spmm"):
         if launches[name] == 0:
-            raise AssertionError(f"MoE path never launched {name}")
-    print(f"  peak device memory (dropless): {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+            raise AssertionError(f"MoE path ({dname}) never launched {name}")
+    print(f"  peak device memory (dropless, {dname}): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
     for name, x in xs.items():
         y, aux = outs[name]
@@ -366,14 +419,15 @@ def phase_moe(args, torch, kops, kref):
             raise AssertionError(f"{name}: output {tuple(y.shape)} is not finite of the "
                                  f"input's shape {tuple(x.shape)}")
         y_cap, aux_cap = tmoe.moe_apply(p, x, cfg_cap)
-        check(f"moe {name} B,S={tuple(x.shape[:2])} dropless vs capacity path", y, y_cap,
-              torch.bfloat16)
+        check(f"moe {name} B,S={tuple(x.shape[:2])} {dname} dropless vs capacity path", y,
+              y_cap, dtype)
         check(f"moe {name} aux loss dropless vs capacity path (float32)", aux, aux_cap,
               torch.float32)
         print(f"  moe {name}: aux={float(aux):.6f} |y|max={float(y.abs().max()):.4f}")
         del y_cap
-    print(f"  peak device memory (with the capacity path): "
+    print(f"  peak device memory (with the capacity path, {dname}): "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del outs
 
     a, topo, rows, cols = sdd_tables(tmoe, p, xs["prefill"], cfg)
     n_valid = int(topo.n_blocks)
@@ -383,18 +437,21 @@ def phase_moe(args, torch, kops, kref):
     out = kops.bsr_sdd(a, w1, rows[pick], cols[pick], bm=bm, bn=bn, device=dev)
     want = kref.bsr_sdd_ref(a, w1, rows[pick], cols[pick], bm, bn)
     check(f"bsr_sdd on the prefill path's tables ({len(pick)} sampled slots of "
-          f"{topo.nnz_max}, {n_valid} valid)", out, want, torch.bfloat16)
+          f"{topo.nnz_max}, {n_valid} valid, {body_label(dtype, kops.sdd_body(a, w1))})", out,
+          want, dtype)
     return tmoe, p, xs, cfg, cfg_cap, launches
 
 
-def phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap):
-    print(f"phase 7: MoE times (median of {args.reps} calls, CUDA events)")
+def phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap, dtype):
+    dname = str(dtype)[6:]
+    print(f"phase 7: MoE times in {dname} (median of {args.reps} calls, CUDA events)")
     for name, x in xs.items():
         ms = median_ms(lambda: tmoe.moe_apply(p, x, cfg), args.reps)
         cap_ms = median_ms(lambda: tmoe.moe_apply(p, x, cfg_cap), args.reps)
-        print(f"  moe_apply {name} B,S={tuple(x.shape[:2])}: dropless ms={ms:.4f} "
+        print(f"  moe_apply {name} B,S={tuple(x.shape[:2])} {dname}: dropless ms={ms:.4f} "
               f"capacity-path ms={cap_ms:.4f}")
-        device_breakdown(torch, f"moe_apply {name} dropless", lambda: tmoe.moe_apply(p, x, cfg))
+        device_breakdown(torch, f"moe_apply {name} {dname} dropless",
+                         lambda: tmoe.moe_apply(p, x, cfg))
     E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff
     stack_ms = median_ms(lambda: p["w1"].permute(1, 0, 2).reshape(d, E * f), args.reps)
     print(f"  not on the path: stacking w1 into (d, E*f) as the reference does per call "
@@ -402,12 +459,10 @@ def phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap):
     records = {}
     for name, x in xs.items():
         a, topo, rows, cols = sdd_tables(tmoe, p, x, cfg)
-        dtypes = (torch.bfloat16, torch.float32) if name == "prefill" else (torch.bfloat16,)
-        for dtype in dtypes:
-            records[("bsr_sdd", name, str(dtype))] = time_sdd(args, torch, kref, p, a, topo,
-                                                              name, dtype)
-        records[("bsr_spmm", name, "torch.bfloat16")] = time_dsd(args, torch, kops, kref, p,
-                                                                 a, topo, name)
+        records[("bsr_sdd", name, str(dtype))] = time_sdd(args, torch, kops, kref, p, a, topo,
+                                                          name)
+        records[("bsr_spmm", name, str(dtype))] = time_dsd(args, torch, kops, kref, p, a, topo,
+                                                           name)
         del a, topo, rows, cols
         torch.cuda.empty_cache()
     return records
@@ -425,60 +480,74 @@ def sample_slots(torch, topo, seed, n=60, n_pad=4):
     return torch.sort(pick).values
 
 
-def time_sdd(args, torch, kref, p, a, topo, name, dtype):
+def time_sdd(args, torch, kops, kref, p, a, topo, name):
     """K3 at the path's tables (all slots, padding included) beside its
-    bound, its plain version on sampled slots and the library call, each in
-    ``dtype``."""
+    bound, its plain version on sampled slots and the library call, in the
+    layer's dtype; at prefill also on the same slots ordered by expert."""
     from repro_torch.kernels import _build
 
     ext = _build.load_kernels()
-    dev = a.device
+    dev, dtype = a.device, a.dtype
     bm, bn = topo.block
     K = a.shape[1]
     rows, cols = topo.row_indices, topo.column_indices
     nnz, n_valid = topo.nnz_max, int(topo.n_blocks)
-    a_t, w_t = a.to(dtype), p["w1"].permute(1, 0, 2).to(dtype)  # float32: copies
+    w = p["w1"].permute(1, 0, 2)
+    body = kops.sdd_body(a, w)
     out = torch.empty((nnz, bm, bn), dtype=dtype, device=dev)
-    launch = lambda: ext.bsr_sdd(a_t, w_t, rows, cols, out)  # noqa: E731
+    launch = lambda: ext.bsr_sdd(a, w, rows, cols, out, body == "cp.async")  # noqa: E731
     launch()
     pick = sample_slots(torch, topo, args.seed + 1)
     sample = (rows[pick], cols[pick])
-    plain = lambda: kref.bsr_sdd_ref(a_t, w_t, *sample, bm, bn)  # noqa: E731
+    plain = lambda: kref.bsr_sdd_ref(a, w, *sample, bm, bn)  # noqa: E731
     tag = f"bsr_sdd {name} {str(dtype)[6:]}"
     err = check(f"{tag} tables ({len(pick)} sampled slots) kernel vs plain", out[pick],
                 plain(), dtype)
+    first = out.clone()
     ms = median_ms(launch, args.reps)
+    same_bits(f"{tag} tables, last timed launch", first, out)
+    del first
     out_s = torch.empty((len(pick), bm, bn), dtype=dtype, device=dev)
-    sample_ms = median_ms(lambda: ext.bsr_sdd(a_t, w_t, *sample, out_s), args.reps)
+    sample_ms = median_ms(lambda: ext.bsr_sdd(a, w, *sample, out_s, body == "cp.async"),
+                          args.reps)
     plain_ms = median_ms(plain, args.reps)
     # the valid slots' a rows and each used expert's weight block read once,
     # every slot's block written once; padding slots do no work
     valid = rows < topo.n_block_rows
     n_a = int(torch.unique(rows[valid]).numel())
     n_b = int(torch.unique(cols[valid]).numel())
-    es = a_t.element_size()
-    need = (n_a * bm * K + n_b * K * bn + nnz * bm * bn) * es + nbytes(rows, cols)
+    need = (n_a * bm * K + n_b * K * bn + nnz * bm * bn) * a.element_size() + nbytes(rows, cols)
     ops = 2 * n_valid * bm * bn * K
-    b_ms, b_by = bound_ms(need, ops, dtype)
-    lib_ms, lib_txt = sdd_library(torch, a_t, w_t, topo, out, n_valid, args.reps)
-    print(f"  {tag}: slots={nnz} ({n_valid} valid) bm={bm} bn={bn} K={K} ms={ms:.4f} "
-          f"bound_ms={b_ms:.4f} ({b_by}: {need} B, {ops} ops) roofline_share={b_ms / ms:.3f}; "
-          f"on {len(pick)} sampled slots: ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; "
-          f"library_ms={lib_txt}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+    bound = bound_fields(need, ops, dtype)
+    lib_ms, lib_txt = sdd_library(torch, a, w, topo, out, n_valid, args.reps)
+    print(f"  {tag}: slots={nnz} ({n_valid} valid) bm={bm} bn={bn} K={K} "
+          f"body={body_label(dtype, body)} ms={ms:.4f} {bound_text(bound, need, ops)} "
+          f"roofline_share={bound['bound_ms'] / ms:.3f}; on {len(pick)} sampled slots: "
+          f"ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; library_ms={lib_txt}")
+    if name == "prefill":
+        # the same work with one run per expert: each weight chunk read about
+        # once instead of once per token group (a dispatch sorted by expert)
+        order = torch.sort(torch.where(valid, cols, cols.max() + 1), stable=True).indices
+        r2, c2 = rows[order].contiguous(), cols[order].contiguous()
+        by_ms = median_ms(lambda: ext.bsr_sdd(a, w, r2, c2, out, body == "cp.async"),
+                          args.reps)
+        print(f"  {tag} tables with the slots ordered by expert (one run per expert): "
+              f"ms={by_ms:.4f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                body=body_label(dtype, body), **bound)
 
 
 def time_dsd(args, torch, kops, kref, p, a, topo, name):
     """K2 at the dsd tables as bsr_ops.dsd builds them (m_pad = M, row
     offsets over the real row tiles only): the activations h against the
-    stacked w2, beside its bound, its plain version on a few whole 64-row
-    panels (the runs a CTA walks) and the library call. The timed launch's
-    own output is held against the plain version on those panels."""
+    stacked w2, in the layer's dtype, beside its bound, its plain version on
+    a few whole 64-row panels (the runs a bfloat16 CTA walks) and the library
+    call. The timed launch's own output is held against the plain version on
+    those panels."""
     from repro_torch.kernels import _build, bsr_ops
 
     ext = _build.load_kernels()
-    dev = a.device
+    dev, dtype = a.device, a.dtype
     bm, f = topo.block
     E, d = p["w2"].shape[0], p["w2"].shape[2]
     w1, w3 = p["w1"].permute(1, 0, 2), p["w3"].permute(1, 0, 2)
@@ -488,10 +557,21 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
     x2 = p["w2"].reshape(E * f, d)
     M, Rb = topo.shape[0], topo.n_block_rows
     rows, cols = topo.row_indices, topo.column_indices
-    rptr = kops.row_ptr_from_ids(rows, Rb)
+
+    def tables(r):
+        """Row offsets over r, and the float32 body's split of the table and
+        its scratch (the bfloat16 body walks the row offsets alone)."""
+        rp = kops.row_ptr_from_ids(r, Rb)
+        if dtype != torch.float32:
+            none = torch.empty(0, device=dev)
+            return rp, none, none
+        sched = kops.bsr_schedule("spmm", rp, bm, f, d, dtype)
+        return rp, sched, torch.empty(2 * sched.shape[0] * bm * d, dtype=torch.float32,
+                                      device=dev)
+
+    rptr, sched, partial = tables(rows)
     y = torch.empty((M, d), dtype=x2.dtype, device=dev)
-    none = torch.empty(0, device=dev)  # the bfloat16 body takes no schedule
-    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y, none, none)  # noqa: E731
+    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y, sched, partial)  # noqa: E731
     ms = median_ms(launch, args.reps)
     # a few whole panels of 64 / bm row tiles that hold tiles, and their tiles
     n_valid = int(topo.n_blocks)
@@ -505,13 +585,13 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
     out_rows = (panels[:, None] * (panel * bm) + torch.arange(panel * bm, device=dev)).reshape(-1)
     out_rows = out_rows[out_rows < M]
     plain = lambda: kref.bsr_spmm_ref(s_tiles, s_rows, s_cols, x2, M)  # noqa: E731
-    tag = f"bsr_spmm dsd {name} bfloat16"
+    tag = f"bsr_spmm dsd {name} {str(dtype)[6:]}"
     err = check(f"{tag} tables, timed launch's output on {panels.numel()} whole panels "
-                f"({len(sel)} tiles) vs plain", y[out_rows], plain()[out_rows], torch.bfloat16)
-    s_ptr = kops.row_ptr_from_ids(s_rows, Rb)
+                f"({len(sel)} tiles) vs plain", y[out_rows], plain()[out_rows], dtype)
+    s_tables = tables(s_rows)
     ys = torch.empty_like(y)
-    sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_ptr, s_cols, x2, ys, none, none),
-                          args.reps)
+    sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_tables[0], s_cols, x2, ys,
+                                               *s_tables[1:]), args.reps)
     plain_ms = median_ms(plain, args.reps)
     del ys
     # the valid tiles and each used expert's w2 block read once, y written
@@ -520,25 +600,58 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
     es = x2.element_size()
     need = (n_valid * bm * f + n_b * f * d + M * d) * es + nbytes(rptr, cols[:n_valid])
     ops = 2 * n_valid * bm * f * d
-    b_ms, b_by = bound_ms(need, ops, x2.dtype)
+    bound = bound_fields(need, ops, dtype)
     del y
     torch.cuda.empty_cache()
-    lib_ms, lib_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, x2.dtype, args.reps)
-    _, lib32_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, torch.float32, args.reps)
+    lib_ms, lib_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, dtype, args.reps)
+    if dtype != torch.float32:
+        _, lib32_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, torch.float32,
+                                   args.reps)
+        lib_txt += f" (float32: {lib32_txt})"
     print(f"  {tag}: tiles={tiles.shape[0]} ({n_valid} valid) tm={bm} tk={f} n={d} "
-          f"ms={ms:.4f} bound_ms={b_ms:.4f} ({b_by}: {need} B, {ops} ops) "
-          f"roofline_share={b_ms / ms:.3f}; on {len(sel)} tiles of {panels.numel()} panels: "
-          f"ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; library_ms={lib_txt} "
-          f"(float32: {lib32_txt})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+          f"ms={ms:.4f} {bound_text(bound, need, ops)} "
+          f"roofline_share={bound['bound_ms'] / ms:.3f}; on {len(sel)} tiles of "
+          f"{panels.numel()} panels: ms={sample_ms:.4f} plain_ms={plain_ms:.4f}; "
+          f"library_ms={lib_txt}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound)
+
+
+def own_times(spans):
+    """Device time by kernel from (start, end, name) spans: each stretch of
+    time goes to the earliest-started kernel running then, so a kernel's own
+    time is what it runs after every kernel launched before it has ended (a
+    programmatic dependent's wait on its primary is not its own), and the
+    own times add up to the union of the spans. Returns ({name: [own, span,
+    count]}, union)."""
+    cuts = sorted({t for s, e, _ in spans for t in (s, e)})
+    by_start = sorted(spans)
+    table = {}
+    for s, e, name in spans:
+        row = table.setdefault(name, [0.0, 0.0, 0])
+        row[1] += e - s
+        row[2] += 1
+    busy = 0.0
+    active = []  # indices into by_start, in start order
+    nxt = 0
+    for t0, t1 in zip(cuts, cuts[1:]):
+        while nxt < len(by_start) and by_start[nxt][0] <= t0:
+            active.append(nxt)
+            nxt += 1
+        active = [k for k in active if by_start[k][1] > t0]
+        if active:
+            busy += t1 - t0
+            table[by_start[active[0]][2]][0] += t1 - t0
+    return table, busy
 
 
 def device_breakdown(torch, label, fn, top=6):
-    """One call under torch.profiler: the device time by kernel (exclusive
-    times, largest first) and the device's busy share of the call's wall
-    time (which the profiler's own overhead inflates), or "not measured"
-    if the profiler sees no device time."""
+    """One call under torch.profiler: the device time by kernel (own time,
+    largest first, then any other kernel that overlapped another, with the
+    kernel's whole span beside it where they differ; see ``own_times``) and the device's busy share of the call's
+    wall time (the union of the kernels' spans; the profiler's overhead
+    inflates the wall), or "not measured" if the profiler sees no device
+    time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -550,19 +663,21 @@ def device_breakdown(torch, label, fn, top=6):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / 1e3, e.key, e.count))
-    busy = sum(r[0] for r in rows)
+    spans = [(e.time_range.start / 1e3, e.time_range.end / 1e3, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    table, busy = own_times(spans)
     if busy == 0:
         print(f"  profile {label}: device time not measured (the profiler saw none)")
         return
-    rows.sort(reverse=True)
-    parts = "; ".join(f"{k[:60]} x{n} {t:.3f} ms" for t, k, n in rows[:top])
+    rows = sorted(((own, span, n, k) for k, (own, span, n) in table.items()), reverse=True)
+    def overlapped(row):
+        return row[1] > row[0] * 1.01 + 1e-3
+
+    parts = []
+    for row in rows[:top] + [row for row in rows[top:] if overlapped(row)]:
+        own, span, n, k = row
+        parts.append(f"{k[:60]} x{n} {own:.3f} ms" + (f" (span {span:.3f})" if overlapped(row) else ""))
+    parts = "; ".join(parts)
     print(f"  profile {label}: device busy {busy:.3f} of {wall_ms:.3f} ms wall "
           f"(share {busy / wall_ms:.3f}); by kernel: {parts}")
 
@@ -791,19 +906,16 @@ def main() -> int:
                 lambda: bsr_call(torch, rptr, cols, tiles, (t.m_pad, t.k_pad), rhs),
                 want, dtype, args.reps, select=lambda r: r.reshape(want.shape), before=flush)
             del want
-            nbytes = sum(a.numel() * a.element_size() for a in (tiles, rptr, cols, xin, out))
+            need = sum(a.numel() * a.element_size() for a in (tiles, rptr, cols, xin, out))
             ops = flops_per * tiles.numel()
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS_PER_S[str(dt)] * 1e3
-            bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+            bound = bound_fields(need, ops, dt)
             print(
                 f"  {kname} {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_txt} bound_ms={bound_ms:.4f} ({bound_by}: "
-                f"{nbytes} B, {ops} ops) roofline_share={bound_ms / ms:.3f}"
+                f"library_ms={lib_txt} {bound_text(bound, need, ops)} "
+                f"roofline_share={bound['bound_ms'] / ms:.3f}"
             )
             records[(kname, name, str(dtype))] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound,
             )
         for kind, k, dense_x in (("spmv", ks, x), ("spmm", km, X)):
             # the same staged call on values packed once
@@ -819,15 +931,22 @@ def main() -> int:
     del runs, outs, flush
     torch.cuda.empty_cache()
     phase_sdd(rng, torch, kops, kref)
-    tmoe, p, xs, cfg, cfg_cap, moe_launches = phase_moe(args, torch, kops, kref)
-    moe_records = phase_moe_times(args, torch, kops, kref, tmoe, p, xs, cfg, cfg_cap)
+    moe_records, moe_launches = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        # one dtype's params at a time: float32's 15.3 GB and its buffers need
+        # the bfloat16 layer's memory freed
+        state = phase_moe(args, torch, kops, kref, dtype)
+        moe_launches[str(dtype)] = state[-1]
+        moe_records.update(phase_moe_times(args, torch, kops, kref, *state[:-1], dtype))
+        del state
+        torch.cuda.empty_cache()
 
     # K1, K2: u float32 on the first path; K3: float32 at the MoE prefill
-    # tables; beside them each kernel's bfloat16 rows
+    # tables, launched by the float32 layer; beside them the other rows
     final = {k: (records[(k, "u", "torch.float32")], launches[k])
              for k in ("bsr_spmv", "bsr_spmm")}
     final["bsr_sdd"] = (moe_records[("bsr_sdd", "prefill", "torch.float32")],
-                        moe_launches["bsr_sdd"])
+                        moe_launches["torch.float32"]["bsr_sdd"])
     summary = []
     for kname, (source, replaces) in KERNELS.items():
         rec, n = final[kname]
@@ -835,11 +954,13 @@ def main() -> int:
         for key, r in (("u_bf16", records.get((kname, "u", "torch.bfloat16"))),
                        ("nu_f32", records.get((kname, "nu", "torch.float32"))),
                        ("nu_bf16", records.get((kname, "nu", "torch.bfloat16"))),
-                       ("moe_prefill_bf16", moe_records.get((kname, "prefill", "torch.bfloat16"))),
-                       ("moe_decode_bf16", moe_records.get((kname, "decode", "torch.bfloat16")))):
+                       *((f"moe_{shape}_{short}", moe_records.get((kname, shape, dt)))
+                         for dt, short in (("torch.bfloat16", "bf16"), ("torch.float32", "f32"))
+                         for shape in ("prefill", "decode"))):
             if r is not None:
-                for k in ("ms", "bound_ms", "library_ms"):
-                    extra[f"{key}_{k}"] = r[k]
+                for k in ("ms", "bound_ms", "library_ms", "fma_bound_ms"):
+                    if k in r:
+                        extra[f"{key}_{k}"] = r[k]
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

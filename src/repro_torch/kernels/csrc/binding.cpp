@@ -15,7 +15,7 @@ int bsr_spmv_workers(int tm, int tk, bool bf16);
 int bsr_spmm_workers(int tm, int n);
 void bsr_sdd_launch(const void* a, const void* b, const int* rows, const int* cols, void* out,
                     int nnz, int bm, int bn, int K, int n_row_blocks, int64_t b_stride_k,
-                    int64_t b_stride_c, bool bf16, cudaStream_t stream);
+                    int64_t b_stride_c, bool bf16, bool vec, cudaStream_t stream);
 
 namespace {
 
@@ -107,9 +107,10 @@ int64_t spmm_workers(int64_t tm, int64_t n, int64_t device) {
 // a (M, K); b the (K, N / bn, bn) block-column view of the (K, N) operand,
 // any strides with a unit last one; rows, cols (nnz,) int32, in bounds but
 // for padding slots (rows >= M / bm), which come out as zero blocks;
-// out (nnz, bm, bn).
+// out (nnz, bm, bn). vec: the body with 16-byte cp.async copies (else one
+// element at a time), which ops.sdd_body picks; checked here.
 void bsr_sdd(torch::Tensor a, torch::Tensor b, torch::Tensor rows, torch::Tensor cols,
-             torch::Tensor out) {
+             torch::Tensor out, bool vec) {
   for (const torch::Tensor* t : {&a, &b, &rows, &cols, &out}) {
     TORCH_CHECK(t->is_cuda() && t->device() == a.device(),
                 "all operands must lie on one CUDA device");
@@ -134,12 +135,22 @@ void bsr_sdd(torch::Tensor a, torch::Tensor b, torch::Tensor rows, torch::Tensor
   TORCH_CHECK(nnz * ((bm + 31) / 32) * ((bn + 127) / 128) < (int64_t{1} << 31) &&
                   K < (int64_t{1} << 31) && a.size(0) / bm < (int64_t{1} << 31),
               "too many slots for one launch");
+  if (vec) {
+    const int64_t v = 16 / a.element_size();  // values of one 16-byte copy
+    const auto aligned = [](const torch::Tensor& t) {
+      return reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0;
+    };
+    TORCH_CHECK(aligned(a) && aligned(b) && aligned(out) && K % v == 0 && bn % v == 0 &&
+                    b.stride(0) % v == 0 && b.stride(1) % v == 0,
+                "the cp.async body of bsr_sdd needs 16-byte aligned operands and K, bn and "
+                "b's strides in whole 16-byte vectors");
+  }
   const c10::cuda::CUDAGuard guard(a.device());
   bsr_sdd_launch(a.data_ptr(), b.data_ptr(), rows.data_ptr<int>(), cols.data_ptr<int>(),
                  out.data_ptr(), static_cast<int>(nnz), static_cast<int>(bm),
                  static_cast<int>(bn), static_cast<int>(K), static_cast<int>(a.size(0) / bm),
                  b.stride(0), b.stride(1),
-                 a.scalar_type() == at::kBFloat16, c10::cuda::getCurrentCUDAStream());
+                 a.scalar_type() == at::kBFloat16, vec, c10::cuda::getCurrentCUDAStream());
 }
 
 }  // namespace
@@ -149,5 +160,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("bsr_spmm", &bsr_spmm, "K2: block-sparse SpMM into y (launches on the current stream)");
   m.def("spmv_workers", &spmv_workers, "K1's schedule length for (tm, tk, bf16, device)");
   m.def("spmm_workers", &spmm_workers, "K2 float32's schedule length for (tm, n, device)");
-  m.def("bsr_sdd", &bsr_sdd, "K3: sampled dense-dense blocks into out (launches on the current stream)");
+  m.def("bsr_sdd", &bsr_sdd,
+        "K3: sampled dense-dense blocks into out, by the cp.async body (vec) or the scalar "
+        "one (launches on the current stream)");
 }

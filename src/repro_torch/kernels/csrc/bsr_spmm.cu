@@ -295,8 +295,8 @@ struct SpmmRuns {
   int r0, m0, rows_here;  // the panel's first row tile and its first row in that tile
   int e, e_end, row;      // the next tile, the end of the panel's, and e's row tile
 
-  __device__ runs::Pass next() {
-    runs::Pass p{{nullptr, nullptr}, nullptr, 0u};
+  __device__ runs::Pass<bf16> next() {
+    runs::Pass<bf16> p{{nullptr, nullptr}, nullptr, 0u};
     if (e >= e_end) return p;
     const int c = col_ids[e];
     p.w = x + static_cast<int64_t>(c) * tk * n + j0;
@@ -330,7 +330,7 @@ bsr_spmm_runs_kernel(const bf16* __restrict__ tiles, const int* __restrict__ row
   bf16* out = y + (static_cast<int64_t>(r0) * tm + m0) * n + j0;
   const int e0 = row_ptr[r0], e1 = row_ptr[r1];
   if (e0 == e1) {  // no tile in the panel
-    runs::write_tile<VEC, true>(nullptr, out, n, rows_here, cols_here);
+    runs::write_tile<VEC, true, bf16>(nullptr, out, n, rows_here, cols_here);
     return;
   }
   SpmmRuns sched{tiles, row_ptr, col_ids, x, tm, tk, n, j0, r0, m0, rows_here, e0, e1, r0};

@@ -1,6 +1,7 @@
-// The CTA body that K2 (bsr_spmm.cu) and K3 (bsr_sdd.cu) share for bfloat16:
-// products of a few activation rows against a weight chunk, where
-// consecutive table entries with the same column block share that chunk.
+// The CTA body that K2 (bsr_spmm.cu, bfloat16) and K3 (bsr_sdd.cu, bfloat16
+// and float32) share: products of a few activation rows against a weight
+// chunk, where consecutive table entries with the same column block share
+// that chunk.
 //
 // A CTA owns 64 output rows ("positions", in 8 groups of 8) by a chunk of
 // kBN = 128 weight columns, and a float32 accumulator for all of them. The
@@ -22,11 +23,29 @@
 // chunks, and K2's mostly-zero output), not operations. So the design keeps
 // copies in flight (a ring of kStages shared-memory stages filled by 16-byte
 // cp.async) and multiplies each chunk against a whole run at once. The
-// products run as mma.sync.m16n8k16 with the roles swapped (out^T = W^T A^T),
-// so that the run's 8-row groups fill the instruction's 8-wide side and only
-// the groups a run covers are multiplied. wgmma is not used: it multiplies
-// 64-row operands, and a run here is 8-24 rows, so most of each instruction
-// would multiply padding, for a rate of operations that is not the limit.
+// products run on the tensor cores as mma.sync with the roles swapped
+// (out^T = W^T A^T), so that the run's 8-row groups fill the instruction's
+// 8-wide side and only the groups a run covers are multiplied. wgmma is not
+// used: it multiplies 64-row operands, and a run here is 8-24 rows, so most
+// of each instruction would multiply padding, for a rate of operations that
+// is not the limit.
+//
+// float32 keeps float32's accuracy on the tensor cores by 3xTF32: each operand
+// x is split into hi = tf32(x) and lo = x - hi, read as TF32 (TF32 keeps 11 of
+// float32's 24 significant bits, so hi + lo holds about 22 of them), and lo*hi
+// + hi*lo, then hi*hi, are accumulated by mma.m16n8k8.tf32 (the dropped lo*lo
+// is below float32's rounding). The tensor cores' accumulator truncates, so it
+// restarts at every step, added into a float32 accumulator rounded to nearest.
+// One TF32 product alone misses the 1e-5 tolerance at K = 5120, and so does
+// one tensor-core accumulator over all of K. Three TF32 products for each
+// float32 one, at the card's 494.7 TFLOP/s TF32 rate, make 165 TFLOP/s of
+// float32 work, 2.5x the FMA pipes' 67: at the MoE's tables that puts the
+// operations (1.37 ms at prefill) below the bytes (1.62 ms) again. A step is
+// 32 bytes of depth in both types (32 bfloat16, 16 float32 values), so a stage
+// holds the same 13.5 KB and three of them fit the 48 KB of static shared
+// memory. The ring keeps raw float32; the split happens as the fragments are
+// loaded (each warp splits the activation rows it shares with the other three
+// itself).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,19 +60,36 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kRows = 64;      // positions of a CTA, 8 groups of 8
 constexpr int kBN = 128;       // weight columns of a CTA
-constexpr int kBK = 32;        // depth of one step
 constexpr int kStages = 3;     // ring of shared-memory stages: 2 steps in flight
-constexpr int kLdA = kBK + 8;  // padded rows: 8 rows of a column of 16-byte
-constexpr int kLdW = kBN + 8;  // chunks fall in 8 different bank groups
-constexpr int kLdC = kBN + 8;
+
+// The ring's layout for one element type: the depth of a step (32 bytes of
+// each row) and the padded row lengths, which keep the fragment loads free
+// of bank conflicts and every row 16-byte aligned.
+template <class T>
+struct Shape;
+template <>
+struct Shape<bf16> {
+  static constexpr int kBK = 32;
+  static constexpr int kLdA = kBK + 8;  // padded rows: 8 rows of a column of 16-byte
+  static constexpr int kLdW = kBN + 8;  // chunks fall in 8 different bank groups
+  static constexpr int kLdC = kBN + 8;
+};
+template <>
+struct Shape<float> {
+  static constexpr int kBK = 16;
+  static constexpr int kLdA = kBK + 4;  // rows 80 bytes apart: ldmatrix's 8 rows in 8 bank groups
+  static constexpr int kLdW = kBN + 8;  // rows k and k + 1 of a 16-byte fragment load 8 banks apart
+  static constexpr int kLdC = kBN + 4;
+};
 
 // One pass: this thread's two activation rows (positions tid / 4 and
 // tid / 4 + 32; nullptr where the run does not cover it), at depth 0, the
 // weight chunk at depth 0 and the CTA's first column, and the groups of 8
 // positions the run covers (bit g for positions 8g..8g+7; 0: no pass).
+template <class T>
 struct Pass {
-  const bf16* a[2];
-  const bf16* w;
+  const T* a[2];
+  const T* w;
   unsigned mask;
 };
 
@@ -69,8 +105,9 @@ __device__ __forceinline__ unsigned group_bits(int lo, int hi) {
 // (may be negative: the CTA starts inside the unit) to a pass: its group
 // bits, and for each of this thread's positions that it covers, the
 // activation row `unit_a` + (row within the unit) * depth.
-__device__ __forceinline__ void add_unit(Pass& p, int lo, int unit_rows, int rows_here,
-                                         const bf16* unit_a, int depth) {
+template <class T>
+__device__ __forceinline__ void add_unit(Pass<T>& p, int lo, int unit_rows, int rows_here,
+                                         const T* unit_a, int depth) {
   const int hi = min(lo + unit_rows, rows_here);
   p.mask |= group_bits(max(lo, 0), hi);
 #pragma unroll
@@ -78,6 +115,17 @@ __device__ __forceinline__ void add_unit(Pass& p, int lo, int unit_rows, int row
     const int q = my_position(j);
     if (q >= lo && q < hi) p.a[j] = unit_a + static_cast<int64_t>(q - lo) * depth;
   }
+}
+
+template <class T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float v) {
+  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -99,9 +147,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8 x 8 matrices of 16-bit values from shared memory; lanes 8j..8j+7
-// give the row addresses of matrix j, which lands in r[j]. TRANS: each
-// matrix transposed.
+// Four 8 x 8 matrices of 16-bit values (8 x 4 of 32-bit ones) from shared
+// memory; lanes 8j..8j+7 give the row addresses of matrix j, which lands in
+// r[j]: lane l gets the 32 bits at row l / 4, word l % 4. TRANS: each matrix
+// transposed (16-bit values only).
 template <bool TRANS>
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   if (TRANS)
@@ -124,66 +173,97 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d (16 x 8, float32) += a (16 x 8, tf32, row-major) @ b (8 x 8, tf32)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo + (below float32's rounding). hi is cvt.rna.tf32.f32(x),
+// rounded to nearest with ties away from zero, computed as half a TF32 ulp
+// added to the bits and the 13 bits below cut: the same bits for every
+// finite x and for inf, in two integer operations, where cvt.rna compiles to
+// a test for finite values and a select besides. lo = x - hi is exact, and
+// goes to the tensor cores as it is: they read its top 19 bits (a TF32 cut
+// toward zero, which costs nothing measurable against cvt.rna's rounding).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+template <class T>
 struct Smem {
+  using S = Shape<T>;
   union {
     struct {
-      bf16 a[kStages][kRows][kLdA];
-      bf16 w[kStages][kBK][kLdW];
+      T a[kStages][kRows][S::kLdA];
+      T w[kStages][S::kBK][S::kLdW];
     } ring;
-    bf16 c[kRows][kLdC];  // the output tile, after the last step
+    T c[kRows][S::kLdC];  // the output tile, after the last step
   };
   unsigned mask[kStages];  // the group mask of the step in each stage
 };
 
 // Loads one step (depth k0..k0+kBK) of pass p into stage s: this thread's
-// 2 x 8 values of A and 4 x 8 of W. VEC: 16-byte asynchronous copies (depth,
-// ldw and the column count multiples of 8 and the operands 16-byte aligned),
-// else one element at a time, synchronously. Out of range: zeros.
-template <bool VEC>
-__device__ __forceinline__ void load_step(Smem& sm, int s, const Pass& p, int k0, int depth,
-                                          int64_t ldw, int cols_here) {
-  const bf16 zero = __float2bfloat16(0.f);
+// 2 x 16 bytes of A and 4 x 16 of W. VEC: 16-byte asynchronous copies
+// (depth, ldw and the column count whole 16-byte vectors and the operands
+// 16-byte aligned), else one element at a time, synchronously. Out of
+// range: zeros.
+template <bool VEC, class T>
+__device__ __forceinline__ void load_step(Smem<T>& sm, int s, const Pass<T>& p, int k0,
+                                          int depth, int64_t ldw, int cols_here) {
+  constexpr int kBK = Shape<T>::kBK;
+  constexpr int kV = 16 / sizeof(T);  // values of one 16-byte copy
+  const T zero = from_float<T>(0.f);
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int kc = (threadIdx.x & 3) * 8;
-    bf16* dst = &sm.ring.a[s][my_position(j)][kc];
-    const bf16* src = p.a[j] + k0 + kc;
+    const int kc = (threadIdx.x & 3) * kV;
+    T* dst = &sm.ring.a[s][my_position(j)][kc];
+    const T* src = p.a[j] + k0 + kc;
     if (VEC) {
       const bool ok = p.a[j] != nullptr && k0 + kc < depth;
       cp_async16(dst, ok ? src : p.w, ok);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
+      for (int e = 0; e < kV; ++e)
         dst[e] = (p.a[j] != nullptr && k0 + kc + e < depth) ? src[e] : zero;
     }
   }
 #pragma unroll
-  for (int i = 0; i < kBK * kBN / 8 / kThreads; ++i) {
+  for (int i = 0; i < kBK * kBN / kV / kThreads; ++i) {
     const int q = threadIdx.x + kThreads * i;
-    const int kr = q / (kBN / 8);
-    const int c = (q % (kBN / 8)) * 8;
-    bf16* dst = &sm.ring.w[s][kr][c];
-    const bf16* src = p.w + static_cast<int64_t>(k0 + kr) * ldw + c;
+    const int kr = q / (kBN / kV);
+    const int c = (q % (kBN / kV)) * kV;
+    T* dst = &sm.ring.w[s][kr][c];
+    const T* src = p.w + static_cast<int64_t>(k0 + kr) * ldw + c;
     const bool row_ok = k0 + kr < depth;
     if (VEC) {
       const bool ok = row_ok && c < cols_here;
       cp_async16(dst, ok ? src : p.w, ok);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = (row_ok && c + e < cols_here) ? src[e] : zero;
+      for (int e = 0; e < kV; ++e) dst[e] = (row_ok && c + e < cols_here) ? src[e] : zero;
     }
   }
   if (threadIdx.x == 0) sm.mask[s] = p.mask;
 }
 
-// The products on tensor cores, mma.sync.m16n8k16 (bfloat16 in, float32
-// accumulate), with the roles swapped so that the few activation rows fill
-// the 8-wide side: out^T (columns x positions) = W^T @ A^T. Warp w owns the
-// 32 weight columns 32w..32w+31 (two 16-row m tiles) against all 8 groups
-// of positions (n tiles of 8), and multiplies a group only where the step's
-// mask has it. W^T comes from the [k][column] ring by ldmatrix.trans, A^T
-// from the [position][k] ring by ldmatrix.
-struct MmaTile {
+// The products on tensor cores, with the roles swapped so that the few
+// activation rows fill the 8-wide side: out^T (columns x positions) =
+// W^T @ A^T. Warp w owns the 32 weight columns 32w..32w+31 (two 16-row m
+// tiles) against all 8 groups of positions (n tiles of 8), and multiplies a
+// group only where the step's mask has it.
+template <class T>
+struct MmaTile;
+
+// bfloat16: mma.sync.m16n8k16. W^T comes from the [k][column] ring by
+// ldmatrix.trans, A^T from the [position][k] ring by ldmatrix.
+template <>
+struct MmaTile<bf16> {
   float acc[2][8][4];  // [m tile][group][fragment]
 
   __device__ __forceinline__ void zero() {
@@ -195,7 +275,7 @@ struct MmaTile {
         for (int i = 0; i < 4; ++i) acc[mt][g][i] = 0.f;
   }
 
-  __device__ __forceinline__ void step(const Smem& sm, int s, unsigned mask) {
+  __device__ __forceinline__ void step(const Smem<bf16>& sm, int s, unsigned mask) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     unsigned wf[2][2][4];  // [k half][m tile]: W^T fragments of this step
 #pragma unroll
@@ -216,7 +296,7 @@ struct MmaTile {
     }
   }
 
-  __device__ __forceinline__ void store(Smem& sm) const {
+  __device__ __forceinline__ void store(Smem<bf16>& sm) const {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
@@ -233,22 +313,99 @@ struct MmaTile {
   }
 };
 
+// float32: 3xTF32 on mma.sync.m16n8k8. The m tiles' rows are the warp's
+// columns interleaved: row r of m tile mt is column 32w + 4 (r % 8) + 2 mt +
+// r / 8, so that one 16-byte load of a ring row gives a lane its W^T values
+// of both m tiles at one depth (ldmatrix.trans has no 32-bit form). A^T
+// comes from the [position][k] ring by ldmatrix, whose 8 x 4 32-bit layout
+// is the tf32 B fragment's. The tensor cores add each product into their
+// accumulator rounded toward zero, a bias that grows with the depth (3.4e-5
+// of max|out| at K = 5120 on the card, past float32's 1e-5): so each step's
+// 6 products start from zero and are added into the float32 accumulator
+// rounded to nearest.
+template <>
+struct MmaTile<float> {
+  float acc[2][8][4];  // [m tile][group][fragment]
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int g = 0; g < 8; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][g][i] = 0.f;
+  }
+
+  __device__ __forceinline__ void step(const Smem<float>& sm, int s, unsigned mask) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    unsigned wh[2][2][4], wl[2][2][4];  // [k half][m tile]: W^T fragments, hi and lo
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // depth lane % 4, then lane % 4 + 4, of the half
+        const float4 v = *reinterpret_cast<const float4*>(
+            &sm.ring.w[s][kh * 8 + r * 4 + (lane & 3)][warp * 32 + (lane >> 2) * 4]);
+        split_tf32(v.x, wh[kh][0][2 * r], wl[kh][0][2 * r]);
+        split_tf32(v.y, wh[kh][0][2 * r + 1], wl[kh][0][2 * r + 1]);
+        split_tf32(v.z, wh[kh][1][2 * r], wl[kh][1][2 * r]);
+        split_tf32(v.w, wh[kh][1][2 * r + 1], wl[kh][1][2 * r + 1]);
+      }
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      if (!((mask >> g) & 1u)) continue;
+      unsigned af[4], ah[4], al[4];  // A^T of group g: b0, b1 of depth 0-7, then of 8-15
+      ldmatrix_x4<false>(af, &sm.ring.a[s][g * 8 + (lane & 7)][(lane >> 3) * 4]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(af[i]), ah[i], al[i]);
+      float d[2][4] = {};  // this step's products: the tensor cores' own accumulator
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_tf32(d[mt], wl[kh][mt], ah[2 * kh], ah[2 * kh + 1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_tf32(d[mt], wh[kh][mt], al[2 * kh], al[2 * kh + 1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_tf32(d[mt], wh[kh][mt], ah[2 * kh], ah[2 * kh + 1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][g][i] += d[mt][i];
+    }
+  }
+
+  __device__ __forceinline__ void store(Smem<float>& sm) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int col = warp * 32 + (lane >> 2) * 4 + mt * 2;  // fragments 0, 1; 2, 3 at col + 1
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {
+        const int pos = g * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(&sm.c[pos][col]) = make_float2(acc[mt][g][0], acc[mt][g][2]);
+        *reinterpret_cast<float2*>(&sm.c[pos + 1][col]) = make_float2(acc[mt][g][1], acc[mt][g][3]);
+      }
+    }
+  }
+};
+
 // Writes rows [0, rows_here) x columns [0, cols_here) of the tile to `out`
 // (row stride ld): from shared memory, or zeros.
-template <bool VEC, bool ZERO>
-__device__ __forceinline__ void write_tile(const Smem* sm, bf16* out, int64_t ld, int rows_here,
+template <bool VEC, bool ZERO, class T>
+__device__ __forceinline__ void write_tile(const Smem<T>* sm, T* out, int64_t ld, int rows_here,
                                            int cols_here) {
-  for (int q = threadIdx.x; q < kRows * (kBN / 8); q += kThreads) {
-    const int r = q / (kBN / 8);
-    const int c = (q % (kBN / 8)) * 8;
+  constexpr int kV = 16 / sizeof(T);
+  for (int q = threadIdx.x; q < kRows * (kBN / kV); q += kThreads) {
+    const int r = q / (kBN / kV);
+    const int c = (q % (kBN / kV)) * kV;
     if (r >= rows_here || c >= cols_here) continue;
-    bf16* dst = out + static_cast<int64_t>(r) * ld + c;
+    T* dst = out + static_cast<int64_t>(r) * ld + c;
     if (VEC) {
       *reinterpret_cast<uint4*>(dst) =
           ZERO ? uint4{0, 0, 0, 0} : *reinterpret_cast<const uint4*>(&sm->c[r][c]);
     } else {
-      for (int e = 0; e < 8 && c + e < cols_here; ++e)
-        dst[e] = ZERO ? __float2bfloat16(0.f) : sm->c[r][c + e];
+      for (int e = 0; e < kV && c + e < cols_here; ++e)
+        dst[e] = ZERO ? from_float<T>(0.f) : sm->c[r][c + e];
     }
   }
 }
@@ -257,13 +414,14 @@ __device__ __forceinline__ void write_tile(const Smem* sm, bf16* out, int64_t ld
 // copies of the next kStages - 1 steps in flight while one step multiplies,
 // then writes the tile to `out` (the CTA's first position and column, row
 // stride ld).
-template <bool VEC, class Sched>
+template <bool VEC, class Sched, class T>
 __device__ __forceinline__ void run_passes(Sched& sched, int depth, int64_t ldw, int rows_here,
-                                           int cols_here, bf16* out, int64_t ld) {
-  __shared__ __align__(16) Smem sm;
-  MmaTile tile;
+                                           int cols_here, T* out, int64_t ld) {
+  constexpr int kBK = Shape<T>::kBK;
+  __shared__ __align__(16) Smem<T> sm;
+  MmaTile<T> tile;
   tile.zero();
-  Pass p = sched.next();
+  Pass<T> p = sched.next();
   int k0 = 0;
   auto prefetch = [&](int s) {
     if (p.mask == 0) {

@@ -7,7 +7,8 @@ device the wrapper checks dtype, shape and contiguity, allocates the output
 with ``torch.empty`` and launches the hand-written kernel on the current
 stream: there is no fallback, and what the kernel does not take raises. On
 the CPU it runs the plain PyTorch version in ``ref.py``. ``bsr_sdd`` wraps
-the reference's ``bsr_ops._sdd_pallas`` in the same way.
+the reference's ``bsr_ops._sdd_pallas`` in the same way; ``sdd_body`` is the
+rule that picks the body its kernel runs.
 
 K1 and K2's float32 body split the sorted tile table evenly over one wave
 of workers sized to the card, ``tile_schedule``. The split depends on the
@@ -28,7 +29,7 @@ from . import ref
 
 __all__ = [
     "bsr_schedule", "bsr_sdd", "bsr_spmm", "bsr_spmv", "launches", "reset_launches",
-    "row_ptr_from_ids", "tile_schedule",
+    "row_ptr_from_ids", "sdd_body", "tile_schedule",
 ]
 
 launches = {"bsr_spmv": 0, "bsr_spmm": 0, "bsr_sdd": 0}
@@ -198,6 +199,19 @@ def bsr_spmm(tiles, row_ids, col_ids, x, *, m_pad, bn=128, row_ptr=None, schedul
     return y
 
 
+def sdd_body(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The body of K3 for ``a`` (M, K) and ``b``'s block-column view (K, N //
+    bn, bn): "cp.async" where both start on 16-byte boundaries and K, bn and
+    b's two outer strides are whole 16-byte vectors (8 bfloat16 or 4 float32
+    values), so that every row the kernel copies or writes is too (the output
+    comes from ``torch.empty``, which aligns it); else "scalar". A function
+    of the operands' dtype, shapes, strides and addresses alone."""
+    v = 16 // a.element_size()
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    whole = all(n % v == 0 for n in (a.shape[1], b.shape[2], b.stride(0), b.stride(1)))
+    return "cp.async" if aligned and whole else "scalar"
+
+
 def bsr_sdd(a, b, rows, cols, *, bm, bn, device=None):
     """Sampled dense-dense product: (nnz, bm, bn) blocks of ``a @ b``,
     ``out[i] = a[rows[i]*bm:+bm, :] @ b[:, cols[i]*bn:+bn]``.
@@ -208,7 +222,8 @@ def bsr_sdd(a, b, rows, cols, *, bm, bn, device=None):
     ``w.permute(1, 0, 2)``, the stacked (K, Cb * bn) matrix without a copy.
     A slot with ``rows[i] >= M // bm`` is padding: its block is written as
     zeros and neither ``a`` nor ``b`` is read for it, so its ``cols[i]`` may
-    hold anything; every other slot's coordinates must be in bounds.
+    hold anything; every other slot's coordinates must be in bounds. The
+    kernel's body is ``sdd_body``'s choice.
     """
     dev = resolve_device(device)
     a, b = _on(a, dev), _on(b, dev)
@@ -237,6 +252,6 @@ def bsr_sdd(a, b, rows, cols, *, bm, bn, device=None):
     if nnz:
         from ._build import load_kernels
 
-        load_kernels().bsr_sdd(a, b, rows, cols, out)
+        load_kernels().bsr_sdd(a, b, rows, cols, out, sdd_body(a, b) == "cp.async")
         launches["bsr_sdd"] += 1
     return out

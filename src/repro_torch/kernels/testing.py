@@ -12,12 +12,18 @@ Skewed tables for K1 and K2's float32 body, which split the tile table
 evenly over the card's workers (``ops.tile_schedule``): row tiles that hold
 most of the tiles, or that few tiles spread over many workers, and long
 stretches of empty row tiles.
+
+A plain emulation of the products K3's float32 body runs on the tensor
+cores: ``cvt.rna.tf32.f32`` (``tf32_rna``) and the 3xTF32 product
+(``matmul_3xtf32``), which show why the body takes three products, and
+restarts the tensor cores' accumulator at every step, to keep float32's
+tolerance.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["SKEWED", "run_slots", "run_tables", "skewed_tables"]
+__all__ = ["SKEWED", "matmul_3xtf32", "run_slots", "run_tables", "skewed_tables", "tf32_rna"]
 
 SKEWED = ("heavy", "few", "one", "gaps")
 
@@ -89,3 +95,53 @@ def run_slots(rng: np.random.Generator, n_col_blocks: int, pad: int):
     rows = np.concatenate([rows, np.full(pad, r)]).astype(np.int32)
     cols = np.concatenate([cols, np.full(pad, n_col_blocks + 7)]).astype(np.int32)
     return rows, cols, r
+
+
+def tf32_rna(x) -> np.ndarray:
+    """``cvt.rna.tf32.f32`` of float32 values, as float32: the mantissa
+    rounded to TF32's 10 bits, to nearest with ties away from zero, and the
+    13 bits below zeroed. The exponent keeps float32's range (large and
+    subnormal values stay; a carry out of the mantissa moves the exponent),
+    the sign stays (so +0 and -0 are kept), inf and nan pass through."""
+    u = np.asarray(x, dtype=np.float32).view(np.uint32)
+    finite = (u & np.uint32(0x7F800000)) != np.uint32(0x7F800000)
+    rounded = (u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)  # half a TF32 ulp, then cut
+    return np.where(finite, rounded, u).astype(np.uint32).view(np.float32)
+
+
+def _split(x):
+    """hi = tf32(x) rounded, and lo = x - hi as the tensor cores read it:
+    its top 19 bits, cut toward zero."""
+    hi = tf32_rna(x)
+    rest = (np.asarray(x, dtype=np.float32) - hi).view(np.uint32)
+    return hi, (rest & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _round_toward_zero(x64):
+    """float64 values as float32, rounded toward zero."""
+    f = x64.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x64)
+    return np.where(over, np.nextafter(f, np.float32(0)), f)
+
+
+def matmul_3xtf32(a, b, step=16) -> np.ndarray:
+    """``a @ b`` (2-D) as K3's float32 body forms it. Each operand is split
+    into ``hi = tf32(x)`` and ``lo = x - hi``, which the tensor cores read as
+    TF32 cut toward zero. Per 8-deep slice, ``lo @ hi``, ``hi @ lo`` and
+    ``hi @ hi`` (each exact: a product of two TF32 values fits float32) are
+    added into the tensor cores' accumulator rounded toward zero, their rule
+    on the card; every ``step`` of depth the body adds that accumulator into
+    its float32 one, rounded to nearest, and restarts it from zero.
+    ``step=None`` keeps one tensor-core accumulator over all of K, whose
+    truncations add up. The sums of each slice run in float64, not in the
+    tensor cores' order: this emulates the precision, not the bits."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    acc = np.zeros((ah.shape[0], bh.shape[1]), np.float32)
+    tc = np.zeros_like(acc)
+    for k in range(0, ah.shape[1], 8):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            part = x[:, k:k + 8].astype(np.float64) @ y[k:k + 8].astype(np.float64)
+            tc = _round_toward_zero(tc.astype(np.float64) + part)
+        if step and (k + 8) % step == 0:
+            acc, tc = acc + tc, np.zeros_like(acc)
+    return acc + tc

@@ -366,3 +366,85 @@ def test_cuda_float32_launches_are_bit_identical(kind):
     yms = [tops.bsr_spmm(t, r, c, xm, m_pad=m_pad, device=dev) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(ys[0], ys[1]) and torch.equal(yms[0], yms[1])
+
+
+# ---------------------------------------------------------------------- #
+# K3 (bsr_sdd) in float32: 3xTF32 on the tensor cores
+# ---------------------------------------------------------------------- #
+def _sdd_case(bm, bn, K, seed, n_cb=7, pad=3):
+    """K3's operands in float32 on the card: slots from ``testing.run_slots``
+    (runs of 1-9 slots of one column block in shuffled order, so that some
+    cross a CTA's group of 64 / bm slots; then ``pad`` padding slots whose
+    column is out of range), a (Rb * bm, K) and the expert stack w (n_cb, K,
+    bn) as its strided block-column view. Returns (a, b, rows, cols)."""
+    rows, cols, n_rb = ttesting.run_slots(np.random.default_rng(seed), n_cb, pad)
+    rng = np.random.default_rng(seed + 1)
+    dev = torch.device("cuda")
+    a = torch.as_tensor(rng.standard_normal((n_rb * bm, K), dtype=np.float32), device=dev)
+    w = torch.as_tensor(rng.standard_normal((n_cb, K, bn), dtype=np.float32), device=dev)
+    r, c = torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)
+    return a, w.permute(1, 0, 2), r, c
+
+
+def _shifted(a):
+    """A copy of ``a`` that starts 4 bytes past a 16-byte boundary, which
+    sends K3 to its scalar body."""
+    return torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(a.shape)
+
+
+def _sdd_check(a, b, r, c, bm, bn, pad=3):
+    """K3 against its plain version at 1e-5 of max|ref|; the padding blocks
+    must be zeros. Returns K3's output."""
+    before = tops.launches["bsr_sdd"]
+    got = tops.bsr_sdd(a, b, r, c, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert tops.launches["bsr_sdd"] == before + 1
+    assert _rel_err(got, tref.bsr_sdd_ref(a, b, r, c, bm, bn)) <= 1e-5
+    assert not got[-pad:].any()
+    return got
+
+
+@requires_cuda
+@pytest.mark.parametrize("bn,K", [(200, 44), (72, 12)])  # bn past 128, ragged; K not 32-deep
+@pytest.mark.parametrize("bm", [1, 5, 8, 16, 24, 40, 100])
+def test_cuda_sdd_float32_bodies_match_plain(bm, bn, K):
+    """Both float32 bodies on run-structured slots, padding included: 64
+    slots of one row to a CTA (bm = 1), groups of 12, 8, 4 and 2 slots, one
+    slot of 40 rows to a CTA, and two CTAs to a slot of 100; the scalar body
+    on the same values in a shifted copy of a."""
+    a, b, r, c = _sdd_case(bm, bn, K, seed=bm * bn + K)
+    for a_in, body in ((a, "cp.async"), (_shifted(a), "scalar")):
+        assert tops.sdd_body(a_in, b) == body
+        _sdd_check(a_in, b, r, c, bm, bn)
+
+
+@requires_cuda
+def test_cuda_sdd_float32_moe_depth_is_bit_identical():
+    """The MoE's blocks (bm 8, bn 1536) at its depth K = 5120, where one TF32
+    product would miss 1e-5, on the cp.async body; a second launch gives the
+    same bits, and the stacked (K, N) layout the same values."""
+    bm, bn, K = 8, 1536, 5120
+    a, b, r, c = _sdd_case(bm, bn, K, seed=3)
+    assert tops.sdd_body(a, b) == "cp.async"
+    first = _sdd_check(a, b, r, c, bm, bn)
+    assert torch.equal(first, tops.bsr_sdd(a, b, r, c, bm=bm, bn=bn))
+    stacked = b.reshape(K, -1)  # a copy: the contiguous (K, 7 * bn) matrix
+    assert _rel_err(tops.bsr_sdd(a, stacked, r, c, bm=bm, bn=bn), first) <= 1e-5
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", ["K45", "a_shifted"])
+def test_cuda_sdd_float32_unaligned_takes_scalar_body(case):
+    """Operands the cp.async body cannot copy (K not whole 16-byte vectors,
+    or a 4 bytes past a 16-byte boundary) take the scalar body, and the
+    binding refuses the cp.async body for them."""
+    from repro_torch.kernels._build import load_kernels
+
+    bm, bn, K = 8, 200, 45 if case == "K45" else 64
+    a, b, r, c = _sdd_case(bm, bn, K, seed=21)
+    if case == "a_shifted":
+        a = _shifted(a)
+    assert tops.sdd_body(a, b) == "scalar"
+    got = _sdd_check(a, b, r, c, bm, bn)
+    with pytest.raises(RuntimeError, match="cp.async"):
+        load_kernels().bsr_sdd(a, b, r, c, torch.empty_like(got), True)
