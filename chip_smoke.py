@@ -74,7 +74,23 @@ Phases, each printing its lines:
             against the timed launch's own output) and the library call in
             the kernel's dtype: torch.sparse.sampled_addmm (K3) and
             torch.sparse_csr_tensor(...) @ x (K2, cuSPARSE; float32 beside
-            bfloat16), each over the element-level CSR.
+            bfloat16), each over the element-level CSR;
+8. tuning  drives the rest of the staged path on u and nu in float32, in a
+            plan cache of its own (a temporary directory): cold tunes
+            (stage_spmv/stage_spmm with backend='autotune', the default
+            candidates, every cuda[tm x tk] tile of autotune.CUDA_TILES
+            among them; the launch counts zeroed just before and read just
+            after, K1 and K2 must have launched), each candidate's time and
+            the winner printed, the winner held against a float64 numpy
+            product and timed beside phase 4's (32, 32) call; a warm restart
+            (in-memory caches cleared, a new PlanCache on the same files)
+            that must make 0 benchmarks and stage the same options; the
+            extended space at nu (reblocking proposals, include_reblock);
+            dia_hybrid on a banded 10 000 x 10 000 matrix under splits of 4
+            (benchmarks/bench_reblock.py's band, bandwidth 24); the gather
+            backend and stage_block_op (a row-sum op) at nu, each checked
+            and timed; then K1 and K2 at every tile of the sweep other than
+            (32, 32), at u and nu, as in phase 4.
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -84,7 +100,9 @@ Any failure raises. The last two lines are the `kernels` JSON object (K1
 and K2 at u in float32 as the rows' own keys, and their other rows as
 u_bf16_*, nu_f32_* and nu_bf16_* keys; K3 at the MoE prefill tables in
 float32, launched by the float32 pass; moe_{prefill,decode}_{bf16,f32}_*
-keys for K2 and K3) and {"ok": true, "device": {...}}.
+keys for K2 and K3; tile_{u,nu}_{tm}x{tk}_f32_* keys for K1 and K2 at the
+tuner's other tiles, with the launches of phase 8's cold tunes, and
+tune_winners) and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -755,9 +773,330 @@ def l2_flush(torch):
 
 
 def bsr_call(torch, row_ptr, cols, tiles, size, rhs):
-    """torch.sparse_bsr_tensor(...) @ rhs, the tensor built once: the call."""
-    bsr = torch.sparse_bsr_tensor(row_ptr, cols, tiles, size=size, check_invariants=True)
-    return lambda: bsr @ rhs
+    """The library's product of the tile table with rhs, the tensor built
+    once: the call. torch.sparse_bsr_tensor(...) @ rhs for square tiles;
+    its product takes no other (an internal assert on this install), so
+    tm != tk gets torch.sparse_csr_tensor(...) @ rhs over the tiles'
+    elements (padding zeros included), the same function."""
+    nb, tm, tk = tiles.shape
+    if tm == tk:
+        bsr = torch.sparse_bsr_tensor(row_ptr, cols, tiles, size=size, check_invariants=True)
+        return lambda: bsr @ rhs
+    dev = tiles.device
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(counts.numel(), device=dev), counts)
+    er = (rows[:, None, None] * tm + torch.arange(tm, device=dev)[None, :, None]).expand(-1, tm, tk)
+    ec = (cols.long()[:, None, None] * tk + torch.arange(tk, device=dev)[None, None, :]).expand(
+        -1, tm, tk)
+    idx = torch.stack([er.reshape(-1), ec.reshape(-1)])
+    csr = torch.sparse_coo_tensor(idx, tiles.reshape(-1), size).coalesce().to_sparse_csr()
+    return lambda: csr @ rhs
+
+
+def band_vbr(n, bw, step, seed):
+    """The banded matrix of benchmarks/bench_reblock.py's ``_band`` (row i
+    holds float32 standard normals in columns i-bw..i+bw, drawn row by row),
+    stored under splits every ``step`` rows and columns that ignore the band,
+    as that benchmark stores it; built from its entries, not from a dense
+    array (400 MB at n = 10 000). Returns (vbr, rows, cols, values)."""
+    import numpy as np
+
+    from repro_torch.core.reblock import build_vbr_from_coo
+
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(n):
+        lo, hi = max(0, i - bw), min(n, i + bw + 1)
+        rows.append(np.full(hi - lo, i))
+        cols.append(np.arange(lo, hi))
+        vals.append(rng.standard_normal(hi - lo).astype(np.float32))
+    rows, cols, vals = (np.concatenate(a) for a in (rows, cols, vals))
+    splits = sorted({0, n, *range(0, n, step)})
+    v, _ = build_vbr_from_coo(rows, cols, np.arange(len(rows)), splits, splits, (n, n),
+                              val=vals)
+    return v, rows, cols, vals
+
+
+def check64(label, out, want):
+    """A float32 result against a float64 numpy one, at float32's tolerance."""
+    import numpy as np
+    import torch
+
+    return check(label, out.float(), torch.as_tensor(np.asarray(want, np.float64)).to(
+        out.device).float(), torch.float32)
+
+
+def phase_tuning(args, torch, kops, kref, mats, call_times, dev):
+    """Phase 8: the tuning path at the paper's size, float32, on ``dev``, in
+    a plan cache of its own. Returns ({(kernel, matrix, tile): record} for K1
+    and K2 at each tile of the sweep other than (32, 32), {kind: {matrix:
+    the cold tune's winner}})."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import autotune as tautotune
+    from repro_torch.core import cache as tcache
+    from repro_torch.core import reblock as treblock
+    from repro_torch.core import staging as tstaging
+    from repro_torch.core.dsl import loopgen
+    from repro_torch.core.inspect import detect_structure
+    from repro_torch.core.vbr import structure_hash
+    from repro_torch.kernels import _build
+
+    print("phase 8: tuning path (autotune, plan cache, reblocking, dia_hybrid, gather) at "
+          "10000 x 10000, float32")
+    n_cols = 128
+    rng = np.random.default_rng(args.seed + 8)
+    inputs = {name: (torch.as_tensor(v.val, device=dev),
+                     rng.standard_normal(v.shape[1]).astype(np.float32),
+                     rng.standard_normal((v.shape[1], n_cols)).astype(np.float32))
+              for name, v in mats.items()}
+    dense = {name: v.to_dense().astype(np.float64) for name, v in mats.items()}
+    tmp = tempfile.TemporaryDirectory(prefix="repro-plans-")
+    tcache.set_default_cache(tcache.PlanCache(tmp.name))  # no earlier plan is read
+    cases = [(name, kind) for name in mats for kind in ("spmv", "spmm")]
+    opts = tstaging.StagingOptions(backend="autotune")
+
+    def stage(name, kind):
+        v = mats[name]
+        return (tstaging.stage_spmv(v, opts, device=dev) if kind == "spmv"
+                else tstaging.stage_spmm(v, n_cols, opts, device=dev))
+
+    def plan_of(name, kind, **kw):
+        v, n = mats[name], None if kind == "spmv" else n_cols
+        return tcache.default_cache().load_plan(tcache.plan_key(
+            kind, structure_hash(v), tcache.device_key(dev), n, **kw))
+
+    def check_winner(label, kern, name, kind):
+        val, x, X = inputs[name]
+        rhs = x if kind == "spmv" else X
+        xin = torch.as_tensor(rhs, device=dev)
+        y = kern(val, xin)
+        torch.cuda.synchronize()
+        check64(f"{label} winner vs float64", y, dense[name] @ rhs.astype(np.float64))
+        return median_ms(lambda: kern(val, xin), args.reps)
+
+    # -- cold tunes, the default candidate space -----------------------------
+    tautotune.reset_autotune_stats()
+    kops.reset_launches()
+    cold, winners = {}, {"spmv": {}, "spmm": {}}
+    for name, kind in cases:
+        t0 = time.perf_counter()
+        kern = stage(name, kind)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        plan = plan_of(name, kind)
+        label = min(plan.timings, key=plan.timings.get)
+        cold[(name, kind)] = (kern, plan, label)
+        parts = ", ".join(f"{lbl} {t * 1e3:.4f}" for lbl, t in
+                          sorted(plan.timings.items(), key=lambda kv: kv[1]))
+        print(f"  cold tune {name} {kind}: {secs:.2f} s; candidates ms (median of "
+              f"{tautotune.DEFAULT_ITERS}, host clock): {parts}; winner {label} "
+              f"({plan.options.backend}, tile {tuple(plan.options.tile)})")
+        missing = [f"cuda[{tm}x{tk}]" for tm, tk in tautotune.CUDA_TILES
+                   if f"cuda[{tm}x{tk}]" not in plan.timings]
+        if missing:
+            raise AssertionError(f"cold tune {name} {kind}: no timing for {missing}")
+        winners[kind][name] = label
+    launches = dict(kops.launches)
+    stats = tautotune.autotune_stats()
+    print(f"  cold tunes: benchmarks={stats['benchmarks']} plans_tuned={stats['plans_tuned']}; "
+          f"kernel launches during the tunes: {launches}")
+    for k in ("bsr_spmv", "bsr_spmm"):
+        if launches[k] == 0:
+            raise AssertionError(f"the tunes never launched {k}")
+    for (name, kind), (kern, plan, label) in cold.items():
+        ms = check_winner(f"tuned {name} {kind} ({label})", kern, name, kind)
+        print(f"  tuned {name} {kind} winner {label}: fn(val, x) ms={ms:.4f} (CUDA events, "
+              f"median of {args.reps}); phase 4's cuda (32, 32) ms="
+              f"{call_times[(name, kind, 'torch.float32')]:.4f}")
+
+    # -- warm restart: in-memory caches gone, a new PlanCache on the files ---
+    tstaging.clear_cache()  # the reblock and DIA memos too
+    tautotune.reset_autotune_stats()
+    tcache.set_default_cache(tcache.PlanCache(tmp.name))
+    t0 = time.perf_counter()
+    warm = {case: stage(*case) for case in cases}
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    stats = tautotune.autotune_stats()
+    print(f"  warm restart: staged {len(cases)} cases in {secs:.2f} s, "
+          f"benchmarks={stats['benchmarks']} cache_hits={stats['cache_hits']}")
+    if stats["benchmarks"] != 0:
+        raise AssertionError(f"warm restart made {stats['benchmarks']} benchmarks")
+    for case, kern in warm.items():
+        if kern.opts != cold[case][0].opts:
+            raise AssertionError(f"warm restart of {case} staged {kern.opts}, "
+                                 f"not {cold[case][0].opts}")
+
+    # -- the extended space at nu ----------------------------------------------
+    nu = mats["nu"]
+    t0 = time.perf_counter()
+    specs = treblock.propose_reblockings(nu, device=dev)
+    print(f"  reblock proposals for nu ({time.perf_counter() - t0:.2f} s): " + "; ".join(
+        f"{sp.strategy} fill_ratio={sp.fill_ratio:.4f} cost={sp.cost:.0f} "
+        f"(as given {sp.base_cost:.0f})" for sp in specs))
+    for kind in ("spmv", "spmm"):
+        t0 = time.perf_counter()
+        kern = tautotune.autotune_stage(nu, kind, None if kind == "spmv" else n_cols,
+                                        include_reblock=True, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        plan = plan_of("nu", kind, reblock=True)
+        label = min(plan.timings, key=plan.timings.get)
+        parts = ", ".join(f"{lbl} {t * 1e3:.4f}" for lbl, t in
+                          sorted(plan.timings.items(), key=lambda kv: kv[1]))
+        print(f"  extended tune nu {kind}: {secs:.2f} s; candidates ms: {parts}; winner "
+              f"{label}; a reblocked candidate won: {plan.reblock is not None}")
+        ms = check_winner(f"extended tune nu {kind} ({label})", kern, "nu", kind)
+        print(f"  extended tune nu {kind} winner {label}: fn(val, x) ms={ms:.4f}")
+
+    # -- dia_hybrid on a banded matrix -----------------------------------------
+    t0 = time.perf_counter()
+    band, rows, cols, vals = band_vbr(10_000, 24, 4, args.seed)
+    info = detect_structure(band)
+    print(f"  band 10000 x 10000, bandwidth 24, splits of 4: blocks={band.num_blocks} "
+          f"stored={band.stored_nnz} class={info.structure_class} "
+          f"diag_occupancy={info.diag_occupancy:.3f} dense diagonals="
+          f"{len(info.dense_offsets)} wants_dia={info.wants_dia} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    if not info.wants_dia:
+        raise AssertionError("the banded matrix does not want dia_hybrid")
+    t0 = time.perf_counter()
+    kd = tstaging.stage_spmv(band, tstaging.StagingOptions(backend="dia_hybrid"), device=dev)
+    secs = time.perf_counter() - t0
+    xb = rng.standard_normal(band.shape[1]).astype(np.float32)
+    want = np.bincount(rows, weights=vals.astype(np.float64) * xb[cols], minlength=band.shape[0])
+    bval, bx = torch.as_tensor(band.val, device=dev), torch.as_tensor(xb, device=dev)
+    check64(f"dia_hybrid band ({kd.num_diagonals} diagonals, remainder {kd.remainder_nnz} "
+            f"stored slots on {kd._rem.backend if kd._rem else None})", kd(bval, bx), want)
+    print(f"  dia_hybrid band: staged in {secs:.2f} s, fn(val, x) "
+          f"ms={median_ms(lambda: kd(bval, bx), args.reps):.4f}")
+
+    # -- gather and stage_block_op at nu ---------------------------------------
+    val, x, X = inputs["nu"]
+    for kind, rhs in (("spmv", x), ("spmm", X)):
+        t0 = time.perf_counter()
+        gopts = tstaging.StagingOptions(backend="gather")
+        kg = (tstaging.stage_spmv(nu, gopts, device=dev) if kind == "spmv"
+              else tstaging.stage_spmm(nu, n_cols, gopts, device=dev))
+        secs = time.perf_counter() - t0
+        xin = torch.as_tensor(rhs, device=dev)
+        check64(f"gather nu {kind}", kg(val, xin), dense["nu"] @ rhs.astype(np.float64))
+        print(f"  gather nu {kind}: staged in {secs:.2f} s, fn(val, x) "
+              f"ms={median_ms(lambda: kg(val, xin), args.reps):.4f}")
+
+    def scale_rowsum(r1, r2, blk, x, out):
+        def body(i, j):
+            out[i] += blk[(j - r2.start) * len(r1) + (i - r1.start)] * x[j]
+
+        loopgen(r1, lambda i: loopgen(r2, lambda j: body(i, j)))
+
+    t0 = time.perf_counter()
+    fn = tstaging.stage_block_op(nu, scale_rowsum, extra_arrays=("x",), device=dev)
+    secs = time.perf_counter() - t0
+    want = np.zeros(nu.shape[0])
+    for t in nu.blocks():  # a numpy loop over the blocks
+        blk = nu.val[t.val_offset:t.val_offset + t.size].reshape(t.width, t.height).T
+        want[t.row_start:t.row_end] += blk.astype(np.float64) @ x[t.col_start:t.col_end]
+    xin, out0 = torch.as_tensor(x, device=dev), torch.zeros(nu.shape[0], device=dev)
+    check64("stage_block_op scale_rowsum nu vs a numpy loop", fn(val, xin, out0), want)
+    print(f"  stage_block_op scale_rowsum nu: staged in {secs:.2f} s, call "
+          f"ms={median_ms(lambda: fn(val, xin, out0), args.reps):.4f}")
+    del dense, warm, cold
+    tcache.set_default_cache(None)
+    tmp.cleanup()
+
+    # -- K1 and K2 at the sweep's other tiles, as in phase 4 ------------------
+    # (the tunes' picks among near-equal candidates vary from run to run, so
+    # every tile the tuner may pick is timed)
+    records = {}
+    ext, flush = _build.load_kernels(), l2_flush(torch)
+    for name, v in mats.items():
+        val, x, X = inputs[name]
+        for tile in tautotune.CUDA_TILES:
+            if tile == (32, 32):
+                continue
+            o = tstaging.StagingOptions(backend="cuda", tile=tile)
+            ks, km = tstaging.stage_spmv(v, o, device=dev), tstaging.stage_spmm(v, n_cols, o,
+                                                                                 device=dev)
+            tag = f"{name} float32 tile {tile[0]}x{tile[1]}"
+            for kname, rec in time_kernels(args, torch, kref, ext, flush, ks, km, val,
+                                           torch.as_tensor(x, device=dev),
+                                           torch.as_tensor(X, device=dev), tag).items():
+                records[(kname, name, tile)] = dict(rec, launches=launches[kname])
+            tstaging.clear_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return records, winners
+
+
+def time_kernels(args, torch, kref, ext, flush, ks, km, val, x, X, tag, profile=False):
+    """K1 and K2 at the tables of the staged 'cuda' kernels ``ks`` (SpMV) and
+    ``km`` (SpMM) on ``val``, with the schedules they built: each held
+    against its plain version and timed beside it, its bound and the library
+    call, after an L2 flush; in float32 the last timed launch must give the
+    first one's bits. ``profile``: each kernel's own launches under
+    torch.profiler too. Returns {kernel name: record}."""
+    dev = val.device
+    t = ks.tiled
+    n_cols = X.shape[1]
+    tiles = ks.pack(val)
+    dt = tiles.dtype
+    xp = torch.cat([x.new_zeros(1), x]).to(dt)[torch.as_tensor(t.x_src, device=dev)]
+    Xp = torch.cat([X.new_zeros(1, n_cols), X]).to(dt)[torch.as_tensor(t.x_src, device=dev)]
+    rows = torch.as_tensor(t.row_ids, device=dev)
+    cols = torch.as_tensor(t.col_ids, device=dev)
+    rptr = torch.as_tensor(t.row_ptr, device=dev)
+    y = torch.empty(t.m_pad, dtype=dt, device=dev)
+    ym = torch.empty(t.m_pad, n_cols, dtype=dt, device=dev)
+    # the schedules the staged path built, and their scratch
+    sv, sm = ks.schedules[dt], km.schedules[dt]
+    pv = torch.empty(2 * sv.shape[0] * t.tm, dtype=torch.float32, device=dev)
+    if sm is not None:
+        pm = torch.empty(2 * sm.shape[0] * t.tm * n_cols, dtype=torch.float32, device=dev)
+    else:  # the bfloat16 body walks row_ptr alone
+        sm = pm = torch.empty(0, device=dev)
+    records = {}
+    for kname, launch, plain, rhs, out, xin, flops_per in (
+        ("bsr_spmv", lambda: ext.bsr_spmv(tiles, rptr, cols, xp, y, sv, pv),
+         lambda: kref.bsr_spmv_ref(tiles, rows, cols, xp, t.m_pad), xp.unsqueeze(1),
+         y, xp, 2),
+        ("bsr_spmm", lambda: ext.bsr_spmm(tiles, rptr, cols, Xp, ym, sm, pm),
+         lambda: kref.bsr_spmm_ref(tiles, rows, cols, Xp, t.m_pad), Xp,
+         ym, Xp, 2 * n_cols),
+    ):
+        launch()
+        torch.cuda.synchronize()
+        want = plain()
+        err = check(f"{kname} {tag} kernel vs plain (main-path tables)", out, want, dt)
+        first = out.clone()
+        ms = median_ms(launch, args.reps, flush)
+        if dt == torch.float32:  # the last timed launch against the first
+            same_bits(f"{kname} {tag} main-path tables", first, out)
+        del first
+        if profile:  # the kernel's own launches, the cut row tiles' join beside it
+            device_breakdown(torch, f"{kname} {tag} (L2 not flushed)", launch)
+        plain_ms = median_ms(plain, args.reps, flush)
+        # in the row's own dtype: (tm, tk) blocks, as the kernels take them
+        lib_name = "sparse_bsr_tensor" if t.tm == t.tk else "sparse_csr_tensor"
+        lib_ms, lib_txt = library_time(
+            f"{kname} {tag} library call {lib_name}(...) @ x",
+            lambda: bsr_call(torch, rptr, cols, tiles, (t.m_pad, t.k_pad), rhs),
+            want, dt, args.reps, select=lambda r: r.reshape(want.shape), before=flush)
+        del want
+        need = sum(a.numel() * a.element_size() for a in (tiles, rptr, cols, xin, out))
+        ops = flops_per * tiles.numel()
+        bound = bound_fields(need, ops, dt)
+        print(
+            f"  {kname} {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_txt} {bound_text(bound, need, ops)} "
+            f"roofline_share={bound['bound_ms'] / ms:.3f}"
+        )
+        records[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              **bound)
+    return records
 
 
 def main() -> int:
@@ -860,63 +1199,12 @@ def main() -> int:
     tiny = torch.empty(32, device=dev)
     print(f"  launch floor: one kernel that does nothing, timed the same way "
           f"ms={median_ms(tiny.zero_, args.reps, flush):.4f}")
-    records = {}
+    records, call_times = {}, {}
     for name, dtype, ks, km, val, x, X in runs:
-        t = ks.tiled
-        tiles = ks.pack(val)
-        dt = tiles.dtype
-        xp = torch.cat([x.new_zeros(1), x]).to(dt)[torch.as_tensor(t.x_src, device=dev)]
-        Xp = torch.cat([X.new_zeros(1, n_cols), X]).to(dt)[torch.as_tensor(t.x_src, device=dev)]
-        rows = torch.as_tensor(t.row_ids, device=dev)
-        cols = torch.as_tensor(t.col_ids, device=dev)
-        rptr = torch.as_tensor(t.row_ptr, device=dev)
-        y = torch.empty(t.m_pad, dtype=dt, device=dev)
-        ym = torch.empty(t.m_pad, n_cols, dtype=dt, device=dev)
-        # the schedules the staged path built, and their scratch
-        sv, sm = ks.schedules[dt], km.schedules[dt]
-        pv = torch.empty(2 * sv.shape[0] * t.tm, dtype=torch.float32, device=dev)
-        if sm is not None:
-            pm = torch.empty(2 * sm.shape[0] * t.tm * n_cols, dtype=torch.float32, device=dev)
-        else:  # the bfloat16 body walks row_ptr alone
-            sm = pm = torch.empty(0, device=dev)
         tag = f"{name} {str(dtype)[6:]}"
-        for kname, launch, plain, rhs, out, xin, flops_per in (
-            ("bsr_spmv", lambda: ext.bsr_spmv(tiles, rptr, cols, xp, y, sv, pv),
-             lambda: kref.bsr_spmv_ref(tiles, rows, cols, xp, t.m_pad), xp.unsqueeze(1),
-             y, xp, 2),
-            ("bsr_spmm", lambda: ext.bsr_spmm(tiles, rptr, cols, Xp, ym, sm, pm),
-             lambda: kref.bsr_spmm_ref(tiles, rows, cols, Xp, t.m_pad), Xp,
-             ym, Xp, 2 * n_cols),
-        ):
-            launch()
-            torch.cuda.synchronize()
-            want = plain()
-            err = check(f"{kname} {tag} kernel vs plain (main-path tables)", out, want, dtype)
-            first = out.clone()
-            ms = median_ms(launch, args.reps, flush)
-            if dt == torch.float32:  # the last timed launch against the first
-                same_bits(f"{kname} {tag} main-path tables", first, out)
-            del first
-            if name == "u":  # the kernel's own launches, the cut row tiles' join beside it
-                device_breakdown(torch, f"{kname} {tag} (L2 not flushed)", launch)
-            plain_ms = median_ms(plain, args.reps, flush)
-            # in the row's own dtype: (32, 32) blocks, as the kernels take them
-            lib_ms, lib_txt = library_time(
-                f"{kname} {tag} library call sparse_bsr_tensor(...) @ x",
-                lambda: bsr_call(torch, rptr, cols, tiles, (t.m_pad, t.k_pad), rhs),
-                want, dtype, args.reps, select=lambda r: r.reshape(want.shape), before=flush)
-            del want
-            need = sum(a.numel() * a.element_size() for a in (tiles, rptr, cols, xin, out))
-            ops = flops_per * tiles.numel()
-            bound = bound_fields(need, ops, dt)
-            print(
-                f"  {kname} {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_txt} {bound_text(bound, need, ops)} "
-                f"roofline_share={bound['bound_ms'] / ms:.3f}"
-            )
-            records[(kname, name, str(dtype))] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound,
-            )
+        for kname, rec in time_kernels(args, torch, kref, ext, flush, ks, km, val, x, X,
+                                       tag, profile=name == "u").items():
+            records[(kname, name, str(dtype))] = rec
         for kind, k, dense_x in (("spmv", ks, x), ("spmm", km, X)):
             # the same staged call on values packed once
             kp = (stage_spmv(mats[name], replace(k.opts, prepack=True)) if kind == "spmv"
@@ -925,6 +1213,7 @@ def main() -> int:
             call_ms = median_ms(lambda: k(val, dense_x), args.reps)
             packed_ms = median_ms(lambda: kp(packed, dense_x), args.reps)
             print(f"  stage_{kind} {tag}: fn(val, x) ms={call_ms:.4f} prepacked ms={packed_ms:.4f}")
+            call_times[(name, kind, str(dtype))] = call_ms
             del kp, packed
 
     # -- phases 5-7 --------------------------------------------------------
@@ -941,6 +1230,9 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
+    # -- phase 8 -----------------------------------------------------------
+    tile_records, winners = phase_tuning(args, torch, kops, kref, mats, call_times, dev)
+
     # K1, K2: u float32 on the first path; K3: float32 at the MoE prefill
     # tables, launched by the float32 layer; beside them the other rows
     final = {k: (records[(k, "u", "torch.float32")], launches[k])
@@ -956,11 +1248,17 @@ def main() -> int:
                        ("nu_bf16", records.get((kname, "nu", "torch.bfloat16"))),
                        *((f"moe_{shape}_{short}", moe_records.get((kname, shape, dt)))
                          for dt, short in (("torch.bfloat16", "bf16"), ("torch.float32", "f32"))
-                         for shape in ("prefill", "decode"))):
+                         for shape in ("prefill", "decode")),
+                       # the sweep's other tiles, float32
+                       *((f"tile_{mat}_{tm}x{tk}_f32", r) for (k, mat, (tm, tk)), r
+                         in tile_records.items() if k == kname)):
             if r is not None:
-                for k in ("ms", "bound_ms", "library_ms", "fma_bound_ms"):
+                for k in ("ms", "bound_ms", "library_ms", "fma_bound_ms", "plain_ms",
+                          "launches"):
                     if k in r:
                         extra[f"{key}_{k}"] = r[k]
+        if kname in ("bsr_spmv", "bsr_spmm"):  # phase 8's cold tunes' winners
+            extra["tune_winners"] = winners["spmv" if kname == "bsr_spmv" else "spmm"]
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

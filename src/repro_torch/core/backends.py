@@ -1,9 +1,12 @@
 """Stage-1 backends for the staged loop-nest IR (PyTorch port of
 ``repro.core.backends``).
 
-Two evaluation strategies over a recorded ``Program``:
+Three evaluation strategies over a recorded ``Program``:
 
   * ``run_reference``      — elementwise NumPy interpretation (oracle),
+  * ``run_vectorized``     — generic gather/scatter-add PyTorch evaluation
+                             of any op in the DSL fragment (``vectorize``
+                             builds its index tensors once, for staging),
   * ``match_block_matmul`` — recognizes the canonical dense-block
                              contraction (SpMV / SpMM bodies) and returns a
                              descriptor that ``staging.py`` lowers to
@@ -12,14 +15,15 @@ Two evaluation strategies over a recorded ``Program``:
 The matcher is the Stage-1 'constant folding' of the paper (Listing 2): it
 proves that the loop nest is a dense column-major block times a dense
 vector/matrix and extracts the constant bounds and value-array offset.
-The generic gather/scatter evaluator of the reference (``run_vectorized``)
-serves only its ``gather`` staging backend and is ported with it.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Optional
+from typing import Callable, Optional
+
+import numpy as np
+import torch
 
 from .dsl import (
     BinOp,
@@ -36,6 +40,8 @@ from .dsl import (
 
 __all__ = [
     "run_reference",
+    "run_vectorized",
+    "vectorize",
     "match_block_matmul",
     "BlockMatmul",
 ]
@@ -93,7 +99,7 @@ def run_reference(program: Program, env: dict) -> None:
 
 
 # ---------------------------------------------------------------------- #
-# Pattern matcher: dense-block contraction
+# Generic vectorized PyTorch evaluation (gather / scatter-add)
 # ---------------------------------------------------------------------- #
 def _loop_nest(stmt, loops):
     """Yield (loops, store) leaves of the nest."""
@@ -103,6 +109,122 @@ def _loop_nest(stmt, loops):
     elif isinstance(stmt, Store):
         yield loops, stmt
 
+
+def _eval_lin_grid(e: LinExpr, grids: dict):
+    """The affine expression over the nest's broadcast index grids: an int,
+    or an int64 numpy array of size 1 on the loop axes it does not use."""
+    out = e.const
+    for k, c in e.coeffs.items():
+        if c:
+            out = out + c * grids[k]
+    return out
+
+
+_OPS = {
+    "*": lambda a, b: a * b,
+    "+": lambda a, b: a + b,
+    "-": lambda a, b: a - b,
+    "/": lambda a, b: a / b,
+}
+
+
+def _lower_value(v: Value, grids: dict, dev):
+    """``(shape, eval(env))``: the value over the index grids, its indices
+    built now as tensors on ``dev``; loads become gathers at evaluation."""
+    if isinstance(v, Const):
+        c = v.v
+        return (), lambda env: c
+    if isinstance(v, LinValue):
+        g = _eval_lin_grid(v.expr, grids)
+        t = torch.as_tensor(g, dtype=torch.int64, device=dev)
+        return np.shape(g), lambda env: t
+    if isinstance(v, Load):
+        g = _eval_lin_grid(v.index, grids)
+        idx = torch.as_tensor(g, dtype=torch.int64, device=dev)
+        name = v.array.name
+        return np.shape(g), lambda env: env[name][idx]
+    if isinstance(v, BinOp) and v.op in _OPS:
+        sa, a = _lower_value(v.lhs, grids, dev)
+        sb, b = _lower_value(v.rhs, grids, dev)
+        op = _OPS[v.op]
+        return np.broadcast_shapes(sa, sb), lambda env: op(a(env), b(env))
+    raise StagingError(f"cannot vectorize {v}")
+
+
+def _lower_store(loops, store: Store, dev) -> Callable[[dict], None]:
+    """One leaf of the nest as an in-place update of ``env[store.array]``.
+
+    The store's index grid stays unbroadcast. Over the loop axes that the
+    index does not use, an accumulating store adds every value into one
+    slot, so the values are summed over those axes first (what a
+    scatter-add of the broadcast grid computes); a plain store keeps the
+    last value along them, as the loop run in order would."""
+    nd = len(loops)
+    grids = {}
+    for ax, lp in enumerate(loops):
+        shape = [1] * nd
+        shape[ax] = lp.stop - lp.start
+        grids[lp.varname] = np.arange(lp.start, lp.stop, dtype=np.int64).reshape(shape)
+    vshape, value = _lower_value(store.value, grids, dev)
+    vshape = (1,) * (nd - len(vshape)) + tuple(vshape)
+    g = np.asarray(_eval_lin_grid(store.index, grids), dtype=np.int64)
+    g = g.reshape((1,) * (nd - g.ndim) + g.shape)
+    shape = np.broadcast_shapes(vshape, g.shape)
+    fold = tuple(ax for ax in range(nd) if g.shape[ax] == 1 and shape[ax] > 1)
+    folded = tuple(1 if ax in fold else n for ax, n in enumerate(shape))
+    idx = torch.as_tensor(np.array(np.broadcast_to(g, folded)).reshape(-1), device=dev)
+    name, accumulate = store.array.name, store.accumulate
+
+    def run(env: dict) -> None:
+        target = env[name]
+        val = torch.as_tensor(value(env), device=target.device).to(target.dtype)
+        val = val.reshape((1,) * (nd - val.dim()) + tuple(val.shape)).expand(shape)
+        for ax in fold:
+            val = (val.sum(ax, keepdim=True) if accumulate
+                   else val.narrow(ax, shape[ax] - 1, 1))
+        target.index_put_((idx,), val.expand(folded).reshape(-1), accumulate=accumulate)
+
+    return run
+
+
+def vectorize(program: Program, device=None) -> Callable[[dict], None]:
+    """Lower ``program`` once: every index grid becomes an int64 tensor on
+    ``device``, so that evaluating it is gathers, arithmetic and one
+    ``index_put_`` a leaf of the nest. The returned ``run(env)`` updates
+    the stored-to tensors of ``env`` in place, leaf after leaf."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    leaves = [_lower_store(loops, store, dev)
+              for top in program for loops, store in _loop_nest(top, [])]
+
+    def run(env: dict) -> None:
+        for leaf in leaves:
+            leaf(env)
+
+    return run
+
+
+def run_vectorized(program: Program, env: dict) -> dict:
+    """Evaluate the program with one broadcasted index grid per loop nest.
+
+    Returns the updated environment (functional: the tensors of ``env``
+    are not written; a stored-to array is copied once). Loads become
+    gathers, accumulating stores ``index_put_(accumulate=True)``
+    scatter-adds (duplicate indices sum, matching sequential semantics for
+    '+='), plain stores ``index_put_``; index tensors are int64 on the
+    target's device.
+    """
+    env = {k: torch.as_tensor(a) for k, a in env.items()}
+    stored = {store.array.name for top in program for _, store in _loop_nest(top, [])}
+    for name in stored:
+        env[name] = env[name].clone()
+    devices = {env[name].device for name in stored}
+    vectorize(program, next(iter(devices), None))(env)
+    return env
+
+
+# ---------------------------------------------------------------------- #
+# Pattern matcher: dense-block contraction
+# ---------------------------------------------------------------------- #
 
 @dataclasses.dataclass(frozen=True)
 class BlockMatmul:

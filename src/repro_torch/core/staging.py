@@ -13,11 +13,19 @@ Stage 1  the descriptors become a specialized PyTorch function. Backends:
                        CUDA kernels K1/K2 (``kernels/csrc``); the counterpart
                        of the reference's 'pallas'. On a CPU device the same
                        tables run through the kernels' plain versions.
-           'auto'      'cuda' on a CUDA device, 'grouped' on the CPU.
+           'gather'    generic vectorized evaluation of ANY DSL op (the
+                       extensibility story of Section IV-A): each block's
+                       program and index tensors are built at staging, the
+                       call is gathers and scatter-adds,
+           'dia_hybrid' dense diagonals DIA-style + staged remainder,
+                       SpMV-only (``kernels/dia_hybrid.py``),
+           'auto'      'cuda' on a CUDA device, 'grouped' on the CPU,
+           'autotune'  measured choice: time the candidates via
+                       ``core.autotune`` and persist the winner on disk
+                       (``core.cache``) keyed by structure hash + device.
 
-         'gather', 'dia_hybrid' and 'autotune' and the sharded path
-         (``mesh=``/``shards=``) belong to later slices of the port and raise
-         ``NotImplementedError``.
+         The sharded path (``mesh=``/``shards=``) belongs to a later slice
+         of the port and raises ``NotImplementedError``.
 Stage 2  PyTorch runs eagerly: there is no program to compile. The kernels
          are built at first use; ``compile()`` records that build and the
          first call. Staged functions are cached keyed by the *structure
@@ -40,7 +48,7 @@ import torch
 from ..device import on_device, resolve_device
 from ..kernels import ops as kops
 from . import vbr as vbrlib
-from .backends import BlockMatmul, match_block_matmul
+from .backends import BlockMatmul, match_block_matmul, vectorize
 from .dsl import ArrayVal, RepRange, stage_op
 from .ops_dsl import ArrayView, spmm_op, spmv_op
 from .uniformize import TiledPattern, uniformize
@@ -50,22 +58,18 @@ __all__ = [
     "StagedKernel",
     "stage_spmv",
     "stage_spmm",
+    "stage_block_op",
+    "partition_block_rows",
     "clear_cache",
     "cache_info",
 ]
 
-# Options of the reference that a later slice of the port brings.
-_LATER = {
-    "autotune": "the tuning slice (core/autotune.py, core/cache.py)",
-    "gather": "the slice that ports run_vectorized and stage_block_op",
-    "dia_hybrid": "the inspection slice (kernels/dia_hybrid.py)",
-}
-_BACKENDS = ("auto", "unrolled", "grouped", "bucketed", "cuda")
+_BACKENDS = ("auto", "unrolled", "grouped", "bucketed", "cuda", "gather")
 
 
 @dataclasses.dataclass(frozen=True)
 class StagingOptions:
-    backend: str = "auto"  # auto|unrolled|grouped|bucketed|cuda
+    backend: str = "auto"  # auto|autotune|unrolled|grouped|bucketed|cuda|gather|dia_hybrid
     density_threshold: float = 0.0  # blocks below -> COO tail (needs hints)
     # cuda (tm, tk): a 32-wide k slice is one 128-byte line per tile row in
     # float32 for K1, and 32 rows fill K2's 4 row groups x 8-row register block
@@ -86,10 +90,6 @@ class StagingOptions:
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
-    if backend in _LATER:
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet; it comes with {_LATER[backend]}"
-        )
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {_BACKENDS}")
     if backend != "auto":
@@ -100,21 +100,33 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
 # ---------------------------------------------------------------------- #
 # Stage-0 inspection
 # ---------------------------------------------------------------------- #
-def _inspect(vbr: vbrlib.VBR, kind: str, n_cols: Optional[int]) -> list[BlockMatmul]:
-    """Run the DSL op over every block (the paper's block iterator) and
-    pattern-match the recorded IR into BlockMatmul descriptors."""
+def _block_programs(vbr: vbrlib.VBR, op: Callable, arrays: tuple,
+                    n_cols: Optional[int] = None) -> list:
+    """Stage ``op(rows, cols, [dense cols,] block view of val, *arrays)``
+    over every block (the paper's block iterator): one program a block."""
     val_av = ArrayVal("val")
-    x_av = ArrayVal("x")
-    y_av = ArrayVal("y")
+    dense = () if n_cols is None else (RepRange(0, n_cols),)
+    return [
+        stage_op(op, RepRange(t.row_start, t.row_end), RepRange(t.col_start, t.col_end),
+                 *dense, ArrayView(val_av, t.val_offset), *arrays)
+        for t in vbr.blocks()
+    ]
+
+
+def _canonical_programs(vbr: vbrlib.VBR, kind: str, n_cols: Optional[int]) -> list:
+    """The SpMV (x, y vectors) or SpMM (x, y row-major, n_cols wide) op
+    over every block."""
+    xy = (ArrayVal("x"), ArrayVal("y"))
+    if kind == "spmv":
+        return _block_programs(vbr, spmv_op, xy)
+    return _block_programs(vbr, spmm_op, xy, n_cols)
+
+
+def _inspect(vbr: vbrlib.VBR, kind: str, n_cols: Optional[int]) -> list[BlockMatmul]:
+    """Run the DSL op over every block and pattern-match the recorded IR
+    into BlockMatmul descriptors."""
     descs: list[BlockMatmul] = []
-    for t in vbr.blocks():
-        rr = RepRange(t.row_start, t.row_end)
-        cr = RepRange(t.col_start, t.col_end)
-        view = ArrayView(val_av, t.val_offset)
-        if kind == "spmv":
-            prog = stage_op(spmv_op, rr, cr, view, x_av, y_av)
-        else:
-            prog = stage_op(spmm_op, rr, cr, RepRange(0, n_cols), view, x_av, y_av)
+    for prog in _canonical_programs(vbr, kind, n_cols):
         d = match_block_matmul(prog)
         if d is None:  # the canonical ops always match
             raise RuntimeError("op did not match the block-matmul pattern")
@@ -263,6 +275,9 @@ class StagedKernel:
                 dense_descs, self.m, self.k, vbr.rpntr, vbr.cpntr, tm, tk
             )
             self._val_gather = self._tensor(self.tiled.val_gather.reshape(-1))
+        elif self.backend == "gather":  # each block's program, lowered once
+            self._runs = [vectorize(prog, self.device)
+                          for prog in _canonical_programs(vbr, kind, n_cols)]
         self.stage0_time = time.perf_counter() - t0
         self.compile_time = 0.0
         self._fn = self._build()
@@ -365,6 +380,19 @@ class StagedKernel:
 
             return fn
 
+        if backend == "gather":
+            n_cols, runs = self.n_cols, self._runs
+
+            def fn(val, x):
+                # spmm on flattened row-major x and y (the paper's layout)
+                y = torch.zeros(m * (n_cols or 1), dtype=x.dtype, device=dev)
+                env = {"val": val, "x": x.reshape(-1), "y": y}
+                for run in runs:
+                    run(env)
+                return y if kind == "spmv" else y.reshape(m, n_cols)
+
+            return fn
+
         raise ValueError(f"unknown backend {backend}")
 
     # ------------------------------------------------------------------ #
@@ -437,9 +465,24 @@ def stage_spmv(
     device=None,
     mesh=None,
     shards: Optional[int] = None,
-) -> StagedKernel:
+):
     """Stage a pattern-specialized SpMV kernel on ``device`` (None = cuda)."""
+    if opts.backend == "dia_hybrid":
+        if mesh is not None or shards is not None:
+            raise ValueError(
+                "backend='dia_hybrid' is unsharded (the diagonal gather "
+                "spans the full row range); stage unsharded or pick "
+                "another backend for the mesh path"
+            )
+        from ..kernels.dia_hybrid import stage_dia_hybrid
+
+        return stage_dia_hybrid(vbr, opts=opts, device=device)
     _no_sharding(mesh, shards)
+    if opts.backend == "autotune":
+        from .autotune import autotune_stage
+
+        return autotune_stage(vbr, "spmv", value_hints=value_hints, base_opts=opts,
+                              device=device)
     hints = vbr.val if (opts.density_threshold > 0 and value_hints is None) else value_hints
     return _cached("spmv", vbr, opts, hints, device=device)
 
@@ -453,16 +496,75 @@ def stage_spmm(
     device=None,
     mesh=None,
     shards: Optional[int] = None,
-) -> StagedKernel:
+):
     """Stage a pattern-specialized SpMM kernel on ``device`` (None = cuda)."""
+    if opts.backend == "dia_hybrid":
+        raise ValueError("backend='dia_hybrid' is SpMV-only")
     _no_sharding(mesh, shards)
+    if opts.backend == "autotune":
+        from .autotune import autotune_stage
+
+        return autotune_stage(vbr, "spmm", n_cols, value_hints=value_hints, base_opts=opts,
+                              device=device)
     hints = vbr.val if (opts.density_threshold > 0 and value_hints is None) else value_hints
     return _cached("spmm", vbr, opts, hints, n_cols=n_cols, device=device)
 
 
+def stage_block_op(vbr: vbrlib.VBR, user_op: Callable, extra_arrays=("x",), *,
+                   device=None):
+    """Extensibility hook (Section IV-A): stage an ARBITRARY user DSL op
+    over every block with the generic vectorized backend.
+
+    ``user_op(row_idxs, col_idxs, block_view, *arrays, out)`` is staged per
+    block, and each block's index tensors are built now on ``device``
+    (None = cuda); returns ``fn(val, *arrays, out0) -> out``, which leaves
+    its arguments unwritten.
+    """
+    dev = resolve_device(device)
+    arrays = (*(ArrayVal(n) for n in extra_arrays), ArrayVal("out"))
+    runs = [vectorize(prog, dev) for prog in _block_programs(vbr, user_op, arrays)]
+
+    def fn(val, *args):
+        *extras, out0 = args
+        env = {"val": on_device(val, dev), "out": on_device(out0, dev).clone()}
+        env.update({n: on_device(a, dev) for n, a in zip(extra_arrays, extras)})
+        for run in runs:
+            run(env)
+        return env["out"]
+
+    return fn
+
+
+def partition_block_rows(vbr: vbrlib.VBR, num_workers: int) -> list[list[int]]:
+    """Paper Section IV-D load balancing: group block rows into tasks by
+    total block size (greedy longest-processing-time bin packing)."""
+    sizes = np.zeros(vbr.num_block_rows, dtype=np.int64)
+    for t in vbr.blocks():
+        sizes[t.block_row] += t.size
+    order = np.argsort(-sizes)
+    bins: list[list[int]] = [[] for _ in range(num_workers)]
+    loads = np.zeros(num_workers, dtype=np.int64)
+    for a in order:
+        w = int(np.argmin(loads))
+        bins[w].append(int(a))
+        loads[w] += int(sizes[a])
+    return bins
+
+
 def clear_cache() -> None:
+    import sys
+
     _CACHE.clear()
     _CACHE_STATS.update(hits=0, misses=0)
+    # the reblock/dia wrappers keep their own kernel memos keyed the same
+    # way: a "fresh process" simulation must drop those too
+    for modname, fn in (
+        ("repro_torch.core.reblock", "clear_reblock_cache"),
+        ("repro_torch.kernels.dia_hybrid", "clear_dia_cache"),
+    ):
+        mod = sys.modules.get(modname)
+        if mod is not None:
+            getattr(mod, fn)()
 
 
 def cache_info() -> dict:

@@ -182,9 +182,6 @@ def test_auto_backend_is_grouped_on_cpu_and_tensors_stay_put():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(opts=StagingOptions(backend="autotune")),
-    dict(opts=StagingOptions(backend="gather")),
-    dict(opts=StagingOptions(backend="dia_hybrid")),
     dict(shards=2),
     dict(mesh=object()),
 ])
