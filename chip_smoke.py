@@ -90,7 +90,28 @@ Phases, each printing its lines:
             (benchmarks/bench_reblock.py's band, bandwidth 24); the gather
             backend and stage_block_op (a row-sum op) at nu, each checked
             and timed; then K1 and K2 at every tile of the sweep other than
-            (32, 32), at u and nu, as in phase 4.
+            (32, 32), at u and nu, as in phase 4;
+9. serve   drives the port's serving path: llama3-8b-sable (llama3-8b at its
+            published widths, each FFN matrix 896 tiles of 128 x 128) through
+            ServeEngine.generate, params and compute in bfloat16 from --seed,
+            8 prompts of 512 tokens and 64 greedy new tokens, in plan caches
+            of its own. First K2 at the FFN shapes (`in` and `out`, prefill
+            T = 4096 and decode T = 8, both dtypes) against its plain
+            version, timed beside its bound, the plain version,
+            torch.sparse_bsr_tensor(...) @ X and the per-call tile gather and
+            transpose; a 2-layer model at the same widths in float32, whose
+            prefill logits through cuda must match those through grouped
+            within 1e-4 of max|logits|. Then the 32-layer model: a cold
+            warmup (each pattern's candidate times and winner printed) and a
+            warm restart that must stage 0 plans; serve (a) with the
+            warmup's pick and (b) with both patterns pinned to cuda by plans
+            in the cache, where K2 must launch 96 times a forward (3 FFN
+            matmuls x 32 layers; the counts zeroed just before each serve
+            and read just after); for each, prefill ms, decode ms a step,
+            tokens/s, peak memory and a torch.profiler breakdown of the
+            prefill and one decode step by layer (attention, FFN, K2, the
+            tile gather and transpose, the head); and how many of the greedy
+            tokens (a) and (b) share (reported, not gated).
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -102,7 +123,9 @@ u_bf16_*, nu_f32_* and nu_bf16_* keys; K3 at the MoE prefill tables in
 float32, launched by the float32 pass; moe_{prefill,decode}_{bf16,f32}_*
 keys for K2 and K3; tile_{u,nu}_{tm}x{tk}_f32_* keys for K1 and K2 at the
 tuner's other tiles, with the launches of phase 8's cold tunes, and
-tune_winners) and {"ok": true, "device": {...}}.
+tune_winners; ffn_{prefill,decode}_{bf16,f32}_* and ffn_out_* keys for K2 at
+the FFN shapes, with the pinned-cuda serve's launches) and {"ok": true,
+"device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -110,6 +133,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -1099,6 +1123,427 @@ def time_kernels(args, torch, kref, ext, flush, ks, km, val, x, X, tag, profile=
     return records
 
 
+# ---------------------------------------------------------------------- #
+# phase 9: serving llama3-8b-sable
+# ---------------------------------------------------------------------- #
+SERVE_B, SERVE_P, SERVE_G = 8, 512, 64  # prompts, prompt tokens, new tokens
+SERVE_TOL = 1e-4  # 2-layer float32 logits, cuda vs grouped, over max|logits|
+
+
+def serve_modules():
+    from repro_torch.configs import get_config
+    from repro_torch.core import autotune as tautotune
+    from repro_torch.core import cache as tcache
+    from repro_torch.models import config as tconfig
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import transformer as ttr
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sparse import linear as tlin
+
+    return dict(get_config=get_config, tautotune=tautotune, tcache=tcache, tconfig=tconfig,
+                tlayers=tlayers, ttr=ttr, ServeEngine=ServeEngine, tlin=tlin)
+
+
+def pin_strategy(m, patterns, backend: str, dev) -> None:
+    """Store a plan naming ``backend`` for each pattern in the default plan
+    cache and empty the in-process registry, so that the next engine loads
+    them: the reference's own mechanism for a chosen strategy."""
+    from repro_torch.core.staging import StagingOptions
+
+    tcache, tlin = m["tcache"], m["tlin"]
+    for p in patterns:
+        h = tlin.pattern_hash(p)
+        tcache.default_cache().store_plan(
+            tcache.plan_key("linear", h, tcache.device_key(dev)),
+            tcache.TuningPlan(kind="linear", structure_hash=h, device=tcache.device_key(dev),
+                              options=StagingOptions(backend=backend, tile=(p.tm, p.tk)),
+                              meta={"pinned": True}, source="heuristic"))
+    tlin._STRATEGY_REGISTRY.clear()
+
+
+def time_ffn_k2(args, torch, kops, kref, m, dev):
+    """K2 at the FFN shapes (896 tiles of 128 x 128; `in`: X (4096, T) ->
+    (14336, T), `out`: X (14336, T) -> (4096, T)) at prefill T = 4096 and
+    decode T = 8, in both dtypes, on the tables and the transposed tiles the
+    cuda strategy builds: each held against its plain version, timed beside
+    it, its bound and torch.sparse_bsr_tensor(...) @ X, after an L2 flush;
+    and the per-call tile gather and transpose alone."""
+    from repro_torch.kernels import _build
+
+    tlin = m["tlin"]
+    ext, flush = _build.load_kernels(), l2_flush(torch)
+    cfg = m["get_config"]("llama3-8b-sable")
+    pats = m["tlayers"].sable_patterns(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    records = {}
+    print("phase 9a: K2 at llama3-8b-sable's FFN shapes (896 tiles of 128 x 128)")
+    for pname, pat in pats.items():
+        t = tlin._tables(pat, dev)
+        for shape, T in (("prefill", SERVE_B * SERVE_P), ("decode", SERVE_B)):
+            for dtype in (torch.bfloat16, torch.float32):
+                dname = str(dtype)[6:]
+                tiles = (torch.randn((pat.n_tiles, pat.tm, pat.tk), generator=gen, device=dev)
+                         / pat.d_in ** 0.5).to(dtype)
+                X = torch.randn((pat.d_in, T), generator=gen, device=dev).to(dtype)
+                tiles_t = tlin._transposed_tiles(tiles, t.order)
+                sched = t.schedule(T, dtype)
+                y = kops.bsr_spmm(tiles_t, t.row_ids, t.col_ids, X, m_pad=pat.d_out,
+                                  row_ptr=t.row_ptr, schedule=sched, device=dev)
+                torch.cuda.synchronize()
+                plain = lambda: kref.bsr_spmm_ref(tiles_t, t.row_ids, t.col_ids, X,  # noqa: E731
+                                                  pat.d_out)
+                want = plain()
+                tag = f"bsr_spmm ffn {pname} {shape} T={T} {dname}"
+                err = check(f"{tag} kernel vs plain", y, want, dtype)
+                if dtype == torch.float32:
+                    partial = torch.empty(2 * sched.shape[0] * pat.tk * T, dtype=torch.float32,
+                                          device=dev)
+                else:
+                    sched = partial = torch.empty(0, device=dev)
+                launch = lambda: ext.bsr_spmm(tiles_t, t.row_ptr, t.col_ids, X, y,  # noqa: E731
+                                              sched, partial)
+                ms = median_ms(launch, args.reps, flush)
+                plain_ms = median_ms(plain, args.reps, flush)
+                lib_ms, lib_txt = library_time(
+                    f"{tag} library call sparse_bsr_tensor(...) @ X",
+                    lambda: bsr_call(torch, t.row_ptr, t.col_ids, tiles_t,
+                                     (pat.d_out, pat.d_in), X),
+                    want, dtype, args.reps, before=flush)
+                tr_ms = median_ms(lambda: tlin._transposed_tiles(tiles, t.order), args.reps,
+                                  flush)
+                need = nbytes(tiles_t, t.row_ptr, t.col_ids, X, y)
+                ops = 2 * tiles_t.numel() * T
+                bound = bound_fields(need, ops, dtype)
+                print(f"  {tag}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_txt} "
+                      f"{bound_text(bound, need, ops)} roofline_share={bound['bound_ms'] / ms:.3f}"
+                      f"; tile gather+transpose alone ms={tr_ms:.4f} "
+                      f"({2 * nbytes(tiles)} B moved)")
+                records[(pname, shape, dname)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                      library_ms=lib_ms, transpose_ms=tr_ms,
+                                                      **bound)
+                del tiles, X, tiles_t, y, want
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_two_layers(args, torch, kops, m, dev):
+    """A 2-layer llama3-8b-sable at full width in float32: the prefill
+    logits through cuda (K2) against those through grouped, both pinned by
+    plans, at SERVE_TOL of max|logits|; K2 launches 3 times a layer."""
+    tconfig = m["tconfig"]
+    ttr = m["ttr"]
+    cfg = replace(m["get_config"]("llama3-8b-sable"), compute_dtype="float32",
+                  param_dtype="float32",
+                  groups=tconfig.uniform_groups(2, tconfig.LayerSpec(mixer="gqa", ffn="dense")))
+    pats = list(m["tlayers"].sable_patterns(cfg).values())
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+    params = ttr.init_params(cfg, gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_P), generator=gen, device=dev)
+    logits = {}
+    for strategy in ("grouped", "cuda"):
+        pin_strategy(m, pats, strategy, dev)
+        before = kops.launches["bsr_spmm"]
+        with torch.inference_mode():
+            logits[strategy], _ = ttr.prefill(params, cfg, prompts,
+                                              ttr.init_cache(cfg, SERVE_B, SERVE_P, device=dev))
+        torch.cuda.synchronize()
+        n = kops.launches["bsr_spmm"] - before
+        if n != (6 if strategy == "cuda" else 0):
+            raise AssertionError(f"2-layer prefill through {strategy}: {n} K2 launches")
+    err, rel = rel_err(logits["cuda"], logits["grouped"])
+    ok = rel <= SERVE_TOL and bool(torch.isfinite(logits["cuda"]).all())
+    print(f"  2 layers at full width, float32, prefill B={SERVE_B} P={SERVE_P}: logits through "
+          f"cuda vs grouped max_abs_err={err:.3e} rel={rel:.3e} tol={SERVE_TOL:g} "
+          f"{'ok' if ok else 'FAIL'} (K2 launched 6 times through cuda, 0 through grouped)")
+    if not ok:
+        raise AssertionError(f"2-layer float32 logits: relative error {rel:.3e}")
+    del params, logits
+    torch.cuda.empty_cache()
+
+
+class annotated:
+    """Within the block, the serving path's layers run inside
+    torch.profiler.record_function ranges (module attributes wrapped and
+    restored), so that a profile attributes device time to them."""
+
+    def __init__(self, torch, m):
+        ttr, tlin = m["ttr"], m["tlin"]
+        self.targets = [(ttr, "gqa_apply", "attention (gqa_apply)"),
+                        (ttr, "ffn_apply", "FFN (ffn_apply)"),
+                        (ttr, "_unembed", "head (final norm, lm_head)"),
+                        (ttr, "_embed", "embedding"),
+                        (tlin, "_transposed_tiles", "FFN: tile gather+transpose")]
+        self.torch = torch
+
+    def __enter__(self):
+        self.saved = []
+        for mod, attr, label in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                with self.torch.profiler.record_function(_label):
+                    return _fn(*a, **k)
+
+            setattr(mod, attr, wrapped)
+        return [label for _, _, label in self.targets]
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def serve_breakdown(torch, m, label, fn):
+    """One call of ``fn`` under torch.profiler inside ``annotated``: device
+    time (each range's kernels, summed) by layer, K2's and the elementwise
+    kernels' own time, and the device's busy share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with annotated(torch, m) as labels:
+        fn()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # a range's device time: the kernels of the operations inside it, each
+    # operation's once. The profiler links a kernel to every event that
+    # carries its operation's id, and an overhead event (a full launch
+    # queue) carries it too, so device_time_total would count it twice.
+    ranges = dict.fromkeys(labels, 0.0)
+    seen = {label: set() for label in labels}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        p = e
+        while p is not None:
+            if p.name in ranges and e.id not in seen[p.name]:
+                seen[p.name].add(e.id)
+                ranges[p.name] += ms
+            p = p.cpu_parent
+    spans = [(e.time_range.start / 1e3, e.time_range.end / 1e3, e.name) for e in events
+             if e.device_type == DeviceType.CUDA and e.name not in ranges
+             and e.time_range.end > e.time_range.start]
+    table, busy = own_times(spans)
+    if busy == 0:
+        print(f"  profile {label}: device time not measured (the profiler saw none)")
+        return None
+    # K2 is launched from its binding, which the profiler links to no range:
+    # its kernels' own time goes to the FFN by name
+    k2 = sum(row[0] for k, row in table.items() if "bsr_spmm" in k or "combine_kernel" in k)
+    ranges[labels[1]] += k2
+    elem = sum(row[0] for k, row in table.items() if "elementwise" in k.lower())
+    top = sorted(((row[0], row[2], k) for k, row in table.items()), reverse=True)[:5]
+    other = busy - sum(ranges[k] for k in labels[:4])
+    parts = "; ".join(f"{k} {v:.3f}" for k, v in ranges.items())
+    print(f"  profile {label}: device busy {busy:.3f} of {wall_ms:.3f} ms wall (share "
+          f"{busy / wall_ms:.3f}); by layer, ms: {parts}; FFN: K2 kernels {k2:.3f}; outside "
+          f"those (norms, residual adds) {other:.3f}; elementwise kernels' own time "
+          f"{elem:.3f}; top kernels: "
+          + "; ".join(f"{k[:50]} x{n} {own:.3f}" for own, n, k in top))
+    return dict(busy_ms=busy, wall_ms=wall_ms, k2_ms=k2, elementwise_ms=elem, **ranges)
+
+
+def dispatch_host_time(tlin, p, dev, per_step: int, calls: int = 1000, rounds: int = 7):
+    """Host clock, median of ``rounds`` rounds of ``calls``: the lookups each
+    FFN matmul makes before its launch (the pattern's plan and its tables),
+    and one hash of a pattern's fields, which each of those lookups paid
+    before the pattern cached its hash."""
+    fields = (p.d_in, p.d_out, p.tm, p.tk, p.rows, p.cols)
+
+    def lookups():
+        tlin.choose_matmul_strategy(p, device=dev)
+        tlin._tables(p, dev)
+
+    def per_call_us(fn):
+        times = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+        return statistics.median(times)
+
+    look, hashed = per_call_us(lookups), per_call_us(lambda: hash(fields))
+    print(f"  FFN dispatch on the host (host clock, median of {rounds} x {calls}): plan and "
+          f"tables lookup {look:.3f} us a matmul, {look * per_step / 1e3:.4f} ms a decode step "
+          f"({per_step} matmuls); a hash of the pattern's fields ({p.n_tiles} tiles) "
+          f"{hashed:.3f} us, {2 * hashed * per_step / 1e3:.4f} ms a step at two a matmul")
+
+
+def step_bounds(cfg, params, batch, prompt, max_len):
+    """Bytes and operations a decode step and the prefill need at least:
+    every weight read once (the embedding's rows aside), the KV cache read
+    over max_len positions (as the path attends over the whole cache), and
+    the FFN tiles' per-call gather and transpose (read and write) beside."""
+    kv = cfg.n_kv_heads * cfg.head_dim
+    layers = cfg.n_layers
+    es = 2  # bfloat16
+    gp = params["groups"][0]["sub0"]
+    attn = sum(v.numel() for v in gp["mixer"].values())
+    ffn = sum(v.numel() for v in gp["ffn"].values())
+    head = params["lm_head"].numel()
+    weights = (attn + ffn + head) * es
+    kv_bytes = 2 * layers * batch * max_len * kv * es
+    transpose = 2 * ffn * es
+    T = batch * prompt
+    # projections and FFN over T tokens, scores and values over the whole
+    # cache, the head at the last position
+    prefill_ops = (2 * T * (attn + ffn) + layers * 4 * batch * cfg.n_heads * prompt
+                   * max_len * cfg.head_dim + 2 * batch * cfg.d_model * cfg.vocab_size)
+    return dict(weights=weights, kv=kv_bytes, transpose=transpose, prefill_ops=prefill_ops)
+
+
+class temp_plans:
+    """Within the block, the default plan cache is a new one in a temporary
+    directory, and the in-process strategy registry starts empty: no plan
+    from earlier runs or phases is read."""
+
+    def __init__(self, m):
+        self.m = m
+
+    def __enter__(self):
+        import tempfile
+
+        self.tmp = tempfile.TemporaryDirectory(prefix="repro-serve-plans-")
+        self.m["tcache"].set_default_cache(self.m["tcache"].PlanCache(self.tmp.name))
+        self.m["tlin"]._STRATEGY_REGISTRY.clear()
+
+    def __exit__(self, *exc):
+        self.m["tcache"].set_default_cache(None)
+        self.m["tlin"]._STRATEGY_REGISTRY.clear()
+        self.tmp.cleanup()
+
+
+def phase_serve(args, torch, kops, kref, dev):
+    """Phase 9: llama3-8b-sable served at full width. Returns (K2's FFN
+    records, the pinned-cuda serve's K2 launches)."""
+    m = serve_modules()
+    records = time_ffn_k2(args, torch, kops, kref, m, dev)
+    print("phase 9b: checks at full width")
+    with temp_plans(m):
+        check_two_layers(args, torch, kops, m, dev)
+    with temp_plans(m):
+        launches = serve_llama(args, torch, kops, m, dev)
+    return records, launches
+
+
+def serve_llama(args, torch, kops, m, dev):
+    from repro_torch.serve.engine import _leaves
+
+    tcache, tlin, ttr, tautotune = m["tcache"], m["tlin"], m["ttr"], m["tautotune"]
+    ServeEngine = m["ServeEngine"]
+    cfg = replace(m["get_config"]("llama3-8b-sable"), param_dtype="bfloat16")
+    pats = m["tlayers"].sable_patterns(cfg)
+    B, P, G = SERVE_B, SERVE_P, SERVE_G
+    max_len = P + G
+    print(f"phase 9c: serve llama3-8b-sable at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; FFN matrices of {pats['in'].n_tiles} tiles of "
+          f"{pats['in'].tm} x {pats['in'].tk}), params and compute in bfloat16; "
+          f"B={B} prompts of {P} tokens, {G} greedy new tokens, max_len {max_len}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = ttr.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    gp = params["groups"][0]["sub0"]
+    counts = {
+        "attention": sum(v.numel() for v in gp["mixer"].values()),
+        "FFN tiles": sum(v.numel() for v in gp["ffn"].values()),
+        "embed and head": params["embed"].numel() + params["lm_head"].numel(),
+    }
+    total = sum(v.numel() for _, v in _leaves(params))
+    print(f"  params: {total / 1e9:.4f} G ({', '.join(f'{k} {v / 1e9:.4f} G' for k, v in counts.items())}), "
+          f"{total * 2 / 1e9:.3f} GB in bfloat16, drawn in {time.perf_counter() - t0:.2f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    b = step_bounds(cfg, params, B, P, max_len)
+    bw = HBM_BYTES_PER_S / 1e3
+    print(f"  decode-step bound: weights {b['weights'] / 1e9:.4f} GB + KV cache "
+          f"{b['kv'] / 1e9:.4f} GB -> {(b['weights'] + b['kv']) / bw:.4f} ms (bytes); the "
+          f"cuda strategy's per-call tile gather+transpose adds {b['transpose'] / 1e9:.4f} GB "
+          f"-> {(b['weights'] + b['kv'] + b['transpose']) / bw:.4f} ms; prefill bound "
+          f"{max(b['prefill_ops'] / 989e9, (b['weights'] + b['kv']) / bw):.4f} ms "
+          f"({b['prefill_ops'] / 1e12:.2f} TFLOP)")
+
+    # -- warmup: cold, then a warm restart --------------------------------------
+    tautotune.reset_autotune_stats()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, params, max_len=max_len, device=dev)
+    secs = time.perf_counter() - t0
+    for name, p in pats.items():
+        h = tlin.pattern_hash(p)
+        plan = tcache.default_cache().load_plan(
+            tcache.plan_key("linear", h, tcache.device_key(dev)))
+        parts = ", ".join(f"{k} {v * 1e3:.4f}" for k, v in sorted(plan.timings.items()))
+        print(f"  warmup, pattern {name} ({h}): candidates ms (host clock, median of 3, float32, "
+              f"batch 8): {parts}; winner {plan.options.backend}")
+    print(f"  warmup ({secs:.2f} s): warmup_stats={engine.warmup_stats} "
+          f"benchmarks={tautotune.autotune_stats()['benchmarks']}")
+    if engine.warmup_stats["warm_start"] or engine.warmup_stats["plans_staged"] != len(pats):
+        raise AssertionError(f"the first warmup was not cold: {engine.warmup_stats}")
+    tlin._STRATEGY_REGISTRY.clear()
+    tautotune.reset_autotune_stats()
+    warm = ServeEngine(cfg, params, max_len=max_len, device=dev)
+    bench = tautotune.autotune_stats()["benchmarks"]
+    print(f"  warm restart: warmup_stats={warm.warmup_stats} benchmarks={bench}")
+    if not warm.warmup_stats["warm_start"] or warm.warmup_stats["plans_staged"] or bench:
+        raise AssertionError(f"warm restart staged plans: {warm.warmup_stats}, {bench} benchmarks")
+    if warm.sparse_plans != engine.sparse_plans:
+        raise AssertionError(f"warm restart loaded {warm.sparse_plans}, not {engine.sparse_plans}")
+    del warm
+
+    # -- (a) the warmup's pick, (b) both patterns pinned to cuda -----------------
+    outs, launches = {}, {}
+    for tag in ("a", "b"):
+        if tag == "b":
+            pin_strategy(m, pats.values(), "cuda", dev)
+            engine = ServeEngine(cfg, params, max_len=max_len, device=dev)
+        picks = {n: tlin.choose_matmul_strategy(p, device=dev) for n, p in pats.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kops.reset_launches()
+        out, stats = engine.generate(prompts, G)
+        launches[tag] = dict(kops.launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        outs[tag] = out
+        new = out[:, P:]
+        if tuple(out.shape) != (B, P + G) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+            raise AssertionError(f"serve ({tag}): tokens {tuple(out.shape)} out of range")
+        n_k2 = launches[tag]["bsr_spmm"]
+        # the in pattern carries two of a layer's three FFN matmuls (w1, w3)
+        want_k2 = ((2 if picks["in"] == "cuda" else 0) + (picks["out"] == "cuda")) * (
+            cfg.n_layers * G)
+        print(f"  serve ({tag}) strategies {picks}: prefill ms={stats['prefill_s'] * 1e3:.3f} "
+              f"decode ms/step={stats['decode_s'] * 1e3 / (G - 1):.3f} "
+              f"tokens/s={stats['tokens_per_s']:.1f} (B x new tokens / decode s) "
+              f"peak GB={peak:.3f}; K2 launches {n_k2} over {G} forwards "
+              f"({n_k2 / G:g} a forward, expected {want_k2 // G})")
+        if n_k2 != want_k2 or (tag == "b" and n_k2 == 0):
+            raise AssertionError(f"serve ({tag}): {n_k2} K2 launches, expected {want_k2}")
+        with torch.inference_mode():
+            cache = ttr.init_cache(cfg, B, max_len, device=dev)
+            serve_breakdown(torch, m, f"serve ({tag}) prefill B={B} P={P}",
+                            lambda: engine._prefill(prompts, cache))
+            tok = out[:, P:P + 1]
+            serve_breakdown(torch, m, f"serve ({tag}) one decode step at position {P}",
+                            lambda: engine._decode(tok, cache, P, 0.0, None))
+            del cache
+    dispatch_host_time(tlin, pats["in"], dev, 3 * cfg.n_layers)
+    same = int((outs["a"][:, P:] == outs["b"][:, P:]).sum())
+    first = int((outs["a"][:, P] == outs["b"][:, P]).sum())
+    print(f"  serves (a) and (b): {same} of {B * G} greedy tokens agree; prefill top-1 agrees "
+          f"on {first} of {B} prompts (reported, not gated: bfloat16 paths differ)")
+    del params, engine, outs
+    torch.cuda.empty_cache()
+    return launches["b"]["bsr_spmm"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1233,6 +1678,14 @@ def main() -> int:
     # -- phase 8 -----------------------------------------------------------
     tile_records, winners = phase_tuning(args, torch, kops, kref, mats, call_times, dev)
 
+    # -- phase 9 -----------------------------------------------------------
+    ffn_records, serve_k2 = phase_serve(args, torch, kops, kref, dev)
+    short = {"bfloat16": "bf16", "float32": "f32"}
+    ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
+        (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
+        for (p, shape, d), r in ffn_records.items()
+    ]
+
     # K1, K2: u float32 on the first path; K3: float32 at the MoE prefill
     # tables, launched by the float32 layer; beside them the other rows
     final = {k: (records[(k, "u", "torch.float32")], launches[k])
@@ -1251,10 +1704,12 @@ def main() -> int:
                          for shape in ("prefill", "decode")),
                        # the sweep's other tiles, float32
                        *((f"tile_{mat}_{tm}x{tk}_f32", r) for (k, mat, (tm, tk)), r
-                         in tile_records.items() if k == kname)):
+                         in tile_records.items() if k == kname),
+                       # the served model's FFN shapes; launches: the pinned-cuda serve
+                       *(ffn_rows if kname == "bsr_spmm" else ())):
             if r is not None:
                 for k in ("ms", "bound_ms", "library_ms", "fma_bound_ms", "plain_ms",
-                          "launches"):
+                          "launches", "transpose_ms"):
                     if k in r:
                         extra[f"{key}_{k}"] = r[k]
         if kname in ("bsr_spmv", "bsr_spmm"):  # phase 8's cold tunes' winners

@@ -4,8 +4,11 @@
 in the port, and a fixture ``.npz`` carries the same fields. The result has
 the same ``structure_hash`` and computes the same product.
 
-``moe_params_from_arrays`` carries the reference's ``moe_init`` params (a
-dict of arrays) across, so that both packages compute the same MoE layer.
+``params_from_arrays`` carries a params tree across leaf for leaf: the
+reference's ``moe_init`` dict, so that both packages compute the same MoE
+layer, or its whole ``init_params`` tree (nested dicts and lists, stacked
+``(repeat, ...)`` group leaves, SABLE tiles ``(repeat, nt, tm, tk)``), so
+that both packages compute the same model.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 from .core.vbr import VBR
 from .device import resolve_device
 
-__all__ = ["moe_params_from_arrays", "vbr_from_arrays"]
+__all__ = ["params_from_arrays", "vbr_from_arrays"]
 
 
 def vbr_from_arrays(shape, rpntr, cpntr, bindx, bpntrb, bpntre, indx, val) -> VBR:
@@ -34,15 +37,21 @@ def vbr_from_arrays(shape, rpntr, cpntr, bindx, bpntrb, bpntre, indx, val) -> VB
     )
 
 
-def moe_params_from_arrays(params: dict, device=None, dtype=torch.float32) -> dict:
-    """The port's MoE params from the reference's ``moe_init`` pytree, as
-    numpy arrays (or anything ``np.asarray`` takes, JAX arrays too), in
-    ``dtype`` on ``device`` (``None``: the card). Layouts stay the
-    reference's: ``router (d, E)``, ``w1``/``w3`` ``(E, d, f)``, ``w2 (E, f, d)``,
-    ``sw1``/``sw3`` ``(d, sf)``, ``sw2 (sf, d)``. Values go through float32,
-    which holds bfloat16 and float16 exactly."""
+def params_from_arrays(tree, device=None, dtype=torch.float32):
+    """The port's params from the reference's ``init_params`` or
+    ``moe_init`` tree (dicts and lists of numpy or JAX arrays, or anything
+    ``np.asarray`` takes), leaf for leaf in the same layout, in ``dtype`` on
+    ``device`` (``None``: the card). MoE layouts: ``router (d, E)``,
+    ``w1``/``w3`` ``(E, d, f)``, ``w2 (E, f, d)``, ``sw1``/``sw3`` ``(d, sf)``,
+    ``sw2 (sf, d)``. Values go through float32, which holds bfloat16 and
+    float16 exactly."""
     dev = resolve_device(device)
-    return {
-        name: torch.as_tensor(np.array(a, dtype=np.float32), device=dev).to(dtype)
-        for name, a in params.items()
-    }
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return torch.as_tensor(np.array(t, dtype=np.float32), device=dev).to(dtype)
+
+    return conv(tree)

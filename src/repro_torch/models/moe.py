@@ -47,7 +47,7 @@ def moe_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32, 
     """Random params in the reference's layout, drawn from ``generator``
     (which must live on ``device``). torch's normal draws differ from
     ``jax.random``'s: to compute the reference's layer, carry its params
-    across with ``convert.moe_params_from_arrays``."""
+    across with ``convert.params_from_arrays``."""
     dev = resolve_device(device)
     mc = cfg.moe
     d, E, f = cfg.d_model, mc.num_experts, mc.d_ff

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..device import on_device, resolve_device
@@ -152,6 +153,24 @@ class BlockMatrix:
             torch.cumsum(counts, 0).to(torch.int32),
         ])
         return cls(tuple(shape), tuple(block), _zero_invalid(valid, data), rows, cols, offsets)
+
+    @classmethod
+    def from_pattern(cls, pattern, tiles, device=None) -> "BlockMatrix":
+        """From a static ``sparse.linear.BlockPattern`` (host-side tile
+        coordinates, already row-major sorted): no padding slots, so
+        ``tiles`` maps 1:1 onto ``data``, which is kept as given. The
+        offsets come from the host coordinates, so nothing waits for the
+        device (``from_coo`` counts rows on it)."""
+        dev = resolve_device(device)
+        R = pattern.d_in // pattern.tm
+        rows = np.asarray(pattern.rows, dtype=np.int64)
+        offsets = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=R))])
+        return cls(
+            (pattern.d_in, pattern.d_out), (pattern.tm, pattern.tk), on_device(tiles, dev),
+            torch.as_tensor(rows, dtype=torch.int32, device=dev),
+            torch.as_tensor(np.asarray(pattern.cols), dtype=torch.int32, device=dev),
+            torch.as_tensor(offsets, dtype=torch.int32, device=dev),
+        )
 
     @classmethod
     def from_dense(cls, x, block: tuple, nnz_max: int = None, device=None) -> "BlockMatrix":

@@ -1,6 +1,6 @@
 """PyTorch port, the MoE layer: ``repro_torch.models.moe.moe_apply`` against
 the JAX package's ``moe_apply`` on the same params (carried across with
-``convert.moe_params_from_arrays``) and inputs, for the dropless path (on
+``convert.params_from_arrays``) and inputs, for the dropless path (on
 the dsd/sdd family) and the capacity path, at prefill and decode shapes.
 
 Params and inputs are numpy normals. The top-k choice of both frameworks
@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # xdist runs this file beside the JAX suites
 
 from repro_torch.configs import deepseek_v2_236b as tds  # noqa: E402
-from repro_torch.convert import moe_params_from_arrays  # noqa: E402
+from repro_torch.convert import params_from_arrays  # noqa: E402
 from repro_torch.models import config as tconfig  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 
@@ -100,7 +100,7 @@ def _params(cfg, seed):
 def _both(jx, jcfg, tcfg, p, x):
     """(reference y, aux), (port y, aux) on numpy params and input."""
     want = jx.apply(jcfg, p, x)
-    y, aux = tmoe.moe_apply(moe_params_from_arrays(p, device=CPU), torch.as_tensor(x), tcfg)
+    y, aux = tmoe.moe_apply(params_from_arrays(p, device=CPU), torch.as_tensor(x), tcfg)
     assert y.dtype == torch.float32 and tuple(y.shape) == x.shape
     return want, (y.numpy(), float(aux))
 
@@ -151,7 +151,7 @@ def test_moe_apply_matches_jax(jx, name):
     p = _params(tcfg, seed=sum(map(ord, name)))
     x = np.random.default_rng(1).standard_normal(shape + (tcfg.d_model,)).astype(np.float32)
     _check(*_both(jx, jcfg, tcfg, p, x))
-    r = tmoe._route(moe_params_from_arrays(p, device=CPU), torch.as_tensor(x), tcfg)
+    r = tmoe._route(params_from_arrays(p, device=CPU), torch.as_tensor(x), tcfg)
     assert bool(r.dropped.any()) == ("drops" in name)
 
 
@@ -166,7 +166,7 @@ def test_dropless_empty_experts_match_jax_and_capacity_path(jx):
     x = np.abs(np.random.default_rng(3).standard_normal(shape + (16,))).astype(np.float32)
     want, got = _both(jx, jcfg, tcfg, p, x)
     _check(want, got)
-    tp = moe_params_from_arrays(p, device=CPU)
+    tp = params_from_arrays(p, device=CPU)
     r = tmoe._route(tp, torch.as_tensor(x), tcfg)
     assert r.counts[:, 2:].sum() == 0 and r.counts.sum() == 2 * 12 * 2
     y_cap, _ = tmoe.moe_apply(tp, torch.as_tensor(x), dataclasses.replace(
@@ -186,7 +186,7 @@ def test_params_carry_jax_moe_init_layout(jx):
         assert {k: tuple(v.shape) for k, v in shapes.items()} == {
             k: tuple(v.shape) for k, v in tp.items()}
     p = _params(tcfg, seed=0)
-    bf = moe_params_from_arrays(p, device=CPU, dtype=torch.bfloat16)
+    bf = params_from_arrays(p, device=CPU, dtype=torch.bfloat16)
     assert set(bf) == set(p)
     for k, v in bf.items():
         assert v.dtype == torch.bfloat16 and v.device.type == "cpu" and v.shape == p[k].shape
@@ -226,7 +226,7 @@ def test_dropless_requires_grad_raises():
     """The dropless path runs the forward-only family: a param that needs a
     gradient raises instead of differentiating the kernels' glue."""
     cfg = _small(tconfig)
-    p = moe_params_from_arrays(_params(cfg, seed=0), device=CPU)
+    p = params_from_arrays(_params(cfg, seed=0), device=CPU)
     p["w1"].requires_grad_()
     x = torch.randn(2, 12, 16, generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="training slice"):
@@ -242,7 +242,7 @@ def test_dropless_on_card_matches_capacity_path(shape):
     from repro_torch.kernels import ops as kops
 
     cfg = _small(tconfig)
-    p = moe_params_from_arrays(_params(cfg, seed=5), device="cuda")
+    p = params_from_arrays(_params(cfg, seed=5), device="cuda")
     x = torch.randn(shape + (16,), device="cuda")
     before = dict(kops.launches)
     y, aux = tmoe.moe_apply(p, x, cfg)
