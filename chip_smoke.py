@@ -111,7 +111,38 @@ Phases, each printing its lines:
             tokens/s, peak memory and a torch.profiler breakdown of the
             prefill and one decode step by layer (attention, FFN, K2, the
             tile gather and transpose, the head); and how many of the greedy
-            tokens (a) and (b) share (reported, not gated).
+            tokens (a) and (b) share (reported, not gated);
+10. continuous  drives the port's request-level serving path: the paged KV
+            cache, the continuous-batching scheduler and ServeEngine.serve,
+            with both FFN patterns pinned to cuda (K2) in plan caches of its
+            own. First a 2-layer llama3-8b-sable at full width in float32:
+            six requests with a shared 32-token prefix through schedulers
+            whose page count forces an eviction, prefix sharing and chunked
+            prefill both on, then both off: each request's greedy tokens
+            must equal generate's on it alone and each step's logits the
+            single-sequence path's within 1e-4 of max|logits|. Then the paged
+            cache of the full-width model on the card: write_prefill, gather,
+            read_dense, evict and resume must give back the same bits, the
+            zero page zero. Then the 32-layer bfloat16 model (from --seed):
+            16 requests of 128-512 prompt tokens and 16-64 greedy new tokens
+            (lengths from --seed), one arriving each step, on 8 lanes,
+            page_size 16, max_len 576, and the largest page count from 200
+            down whose schedule evicts (the schedule depends on lengths
+            alone, so a toy model on the CPU finds it, and the card's run
+            must repeat that schedule exactly). Every request must finish,
+            with at least one eviction and resume, and K2 must launch at
+            least 96 times a forward (decode steps and prefills; the counts
+            zeroed just before and read just after); a second scheduler on
+            the same plan store must stage 0 plans. Printed: wall s,
+            requests/s, decode tokens/s, steps, the median pure decode step
+            (host clock, synchronized) and its gather and scatter (CUDA
+            events), peak memory, a torch.profiler breakdown of one decode
+            step of 8 lanes (attention, FFN, K2, the tile transpose, the
+            gather, the scatter, the head, the rest), how many greedy tokens
+            of four requests equal generate's on each alone (bfloat16 paths
+            differ; not gated), the gather alone at those 8 lanes (CUDA
+            events) beside its bytes bound, and phase 9's generate
+            tokens/s beside.
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -124,8 +155,9 @@ float32, launched by the float32 pass; moe_{prefill,decode}_{bf16,f32}_*
 keys for K2 and K3; tile_{u,nu}_{tm}x{tk}_f32_* keys for K1 and K2 at the
 tuner's other tiles, with the launches of phase 8's cold tunes, and
 tune_winners; ffn_{prefill,decode}_{bf16,f32}_* and ffn_out_* keys for K2 at
-the FFN shapes, with the pinned-cuda serve's launches) and {"ok": true,
-"device": {...}}.
+the FFN shapes, with the pinned-cuda serve's launches; cb_* keys on K2 for
+phase 10: its launches, the median decode step and its gather and scatter,
+the gather alone beside its bound, and the profiled step's device busy ms) and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -1266,13 +1298,14 @@ class annotated:
     torch.profiler.record_function ranges (module attributes wrapped and
     restored), so that a profile attributes device time to them."""
 
-    def __init__(self, torch, m):
+    def __init__(self, torch, m, extra=()):
         ttr, tlin = m["ttr"], m["tlin"]
         self.targets = [(ttr, "gqa_apply", "attention (gqa_apply)"),
                         (ttr, "ffn_apply", "FFN (ffn_apply)"),
                         (ttr, "_unembed", "head (final norm, lm_head)"),
                         (ttr, "_embed", "embedding"),
-                        (tlin, "_transposed_tiles", "FFN: tile gather+transpose")]
+                        (tlin, "_transposed_tiles", "FFN: tile gather+transpose"),
+                        *extra]
         self.torch = torch
 
     def __enter__(self):
@@ -1293,14 +1326,16 @@ class annotated:
             setattr(mod, attr, fn)
 
 
-def serve_breakdown(torch, m, label, fn):
-    """One call of ``fn`` under torch.profiler inside ``annotated``: device
-    time (each range's kernels, summed) by layer, K2's and the elementwise
-    kernels' own time, and the device's busy share of the wall."""
+def serve_breakdown(torch, m, label, fn, extra=()):
+    """One call of ``fn`` under torch.profiler inside ``annotated`` (with
+    ``extra`` (owner, attribute, label) ranges beside the layers, outside
+    them): device time (each range's kernels, summed) by layer, K2's and the
+    elementwise kernels' own time, and the device's busy share of the
+    wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with annotated(torch, m) as labels:
+    with annotated(torch, m, extra) as labels:
         fn()
         torch.cuda.synchronize()
         with warnings.catch_warnings():
@@ -1340,7 +1375,8 @@ def serve_breakdown(torch, m, label, fn):
     ranges[labels[1]] += k2
     elem = sum(row[0] for k, row in table.items() if "elementwise" in k.lower())
     top = sorted(((row[0], row[2], k) for k, row in table.items()), reverse=True)[:5]
-    other = busy - sum(ranges[k] for k in labels[:4])
+    # the tile transpose's range lies inside the FFN's; the extras outside
+    other = busy - sum(ranges[k] for k in labels[:4] + labels[5:])
     parts = "; ".join(f"{k} {v:.3f}" for k, v in ranges.items())
     print(f"  profile {label}: device busy {busy:.3f} of {wall_ms:.3f} ms wall (share "
           f"{busy / wall_ms:.3f}); by layer, ms: {parts}; FFN: K2 kernels {k2:.3f}; outside "
@@ -1423,15 +1459,15 @@ class temp_plans:
 
 def phase_serve(args, torch, kops, kref, dev):
     """Phase 9: llama3-8b-sable served at full width. Returns (K2's FFN
-    records, the pinned-cuda serve's K2 launches)."""
+    records, the pinned-cuda serve's K2 launches and its tokens/s)."""
     m = serve_modules()
     records = time_ffn_k2(args, torch, kops, kref, m, dev)
     print("phase 9b: checks at full width")
     with temp_plans(m):
         check_two_layers(args, torch, kops, m, dev)
     with temp_plans(m):
-        launches = serve_llama(args, torch, kops, m, dev)
-    return records, launches
+        launches, tps = serve_llama(args, torch, kops, m, dev)
+    return records, launches, tps
 
 
 def serve_llama(args, torch, kops, m, dev):
@@ -1499,7 +1535,7 @@ def serve_llama(args, torch, kops, m, dev):
     del warm
 
     # -- (a) the warmup's pick, (b) both patterns pinned to cuda -----------------
-    outs, launches = {}, {}
+    outs, launches, tps = {}, {}, {}
     for tag in ("a", "b"):
         if tag == "b":
             pin_strategy(m, pats.values(), "cuda", dev)
@@ -1510,6 +1546,7 @@ def serve_llama(args, torch, kops, m, dev):
         kops.reset_launches()
         out, stats = engine.generate(prompts, G)
         launches[tag] = dict(kops.launches)
+        tps[tag] = stats["tokens_per_s"]
         peak = torch.cuda.max_memory_allocated() / 1e9
         outs[tag] = out
         new = out[:, P:]
@@ -1541,7 +1578,333 @@ def serve_llama(args, torch, kops, m, dev):
           f"on {first} of {B} prompts (reported, not gated: bfloat16 paths differ)")
     del params, engine, outs
     torch.cuda.empty_cache()
-    return launches["b"]["bsr_spmm"]
+    return launches["b"]["bsr_spmm"], tps["b"]
+
+
+# ---------------------------------------------------------------------- #
+# phase 10: continuous batching of llama3-8b-sable
+# ---------------------------------------------------------------------- #
+CB_REQUESTS, CB_LANES, CB_PAGE, CB_MAX_LEN = 16, 8, 16, 576
+CB_PROMPTS, CB_GENS = (128, 512), (16, 64)  # inclusive ranges, drawn from --seed
+CB_PAGES_FROM = 200  # the page count tried first; fewer until the schedule evicts
+# the 2-layer float32 check: a 32-token shared prefix and these suffixes
+CB2_SUFFIXES, CB2_GENS = (40, 100, 64, 110, 20, 90), (12, 8, 16, 10, 14, 6)
+CB2_LANES, CB2_MAX_LEN, CB2_CHUNK = 4, 160, 32
+CB_PROFILE_P = 256  # prompt tokens of the profiled decode step's 8 lanes
+
+
+def cb_drive(sched, reqs, timed=None):
+    """Submit request i just before step i (each arrives one step after the
+    one before, so admissions happen mid-decode) and step until every
+    request finished. ``timed`` gets (event, wall ms, peak GB so far) per
+    step, the step ended by a device synchronize."""
+    import torch
+
+    i = 0
+    while i < len(reqs) or sched.pending():
+        if i < len(reqs):
+            sched.submit(**reqs[i])
+            i += 1
+        t0 = time.perf_counter()
+        ev = sched.step()
+        if timed is not None:
+            torch.cuda.synchronize()
+            timed.append((ev, (time.perf_counter() - t0) * 1e3,
+                          torch.cuda.max_memory_allocated() / 1e9))
+        if sched.stats["steps"] > 100_000:
+            raise AssertionError("the scheduler did not drain")
+    return sched.requests
+
+
+def cb_schedule(m, torch, reqs, num_pages, **kw):
+    """The scheduler's stats and transcript for ``reqs`` on a 2-layer toy
+    model on the CPU (llama3.2-3b reduced, the full vocabulary): the
+    schedule depends on lengths and token ids alone, never on the params, so
+    it is the card's."""
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+
+    cfg = replace(m["get_config"]("llama3.2-3b", reduced=True), compute_dtype="float32",
+                  param_dtype="float32", vocab_size=128256)
+    params = m["ttr"].init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    sched = ContinuousBatchingScheduler(cfg, params, num_pages=num_pages, device="cpu",
+                                        clock=iter(range(10**9)).__next__, **kw)
+    cb_drive(sched, [{k: v for k, v in r.items() if k != "patterns"} for r in reqs])
+    return sched.stats, sched.transcript
+
+
+def cb_pages(m, torch, reqs, start, configs):
+    """The largest page count from ``start`` down whose schedule evicts and
+    resumes at least once under every one of ``configs`` (scheduler
+    kwargs). Returns (pages, {config index: (stats, transcript)})."""
+    for n in range(start, 0, -8):
+        sims = {i: cb_schedule(m, torch, reqs, n, **kw) for i, kw in enumerate(configs)}
+        if all(st["evictions"] >= 1 and st["resumes"] >= 1 for st, _ in sims.values()):
+            return n, sims
+    raise AssertionError("no page count makes the schedule evict")
+
+
+def cb_logit_rows(torch, ttr, cfg, params, prompt, gens, max_len, dev):
+    """The port's single-sequence path (prefill, then decode_step at int
+    positions over a max_len-wide cache, greedy): float32 logits rows."""
+    with torch.inference_mode():
+        cache = ttr.init_cache(cfg, 1, max_len, device=dev)
+        lg, cache = ttr.prefill(params, cfg, torch.as_tensor(prompt, device=dev)[None].long(),
+                                cache)
+        rows = [lg[0, -1].float()]
+        for j in range(gens - 1):
+            nxt = torch.argmax(rows[-1])[None, None]
+            lg, cache = ttr.decode_step(params, cfg, nxt, cache, len(prompt) + j)
+            rows.append(lg[0, 0].float())
+    return rows
+
+
+def cb_check_two_layers(args, torch, kops, m, dev):
+    """Check 1: a 2-layer llama3-8b-sable at full width in float32 (TF32
+    off), both patterns pinned to K2: six requests (a shared 32-token
+    prefix) through schedulers whose page count forces an eviction, with
+    prefix sharing and chunked prefill both on, then both off. Every
+    request's greedy tokens equal generate's on it alone, and every step's
+    logits agree with the single-sequence path's within SERVE_TOL of
+    max|logits|."""
+    import numpy as np
+
+    tconfig, ttr = m["tconfig"], m["ttr"]
+    cfg = replace(m["get_config"]("llama3-8b-sable"), compute_dtype="float32",
+                  param_dtype="float32",
+                  groups=tconfig.uniform_groups(2, tconfig.LayerSpec(mixer="gqa", ffn="dense")))
+    pin_strategy(m, m["tlayers"].sable_patterns(cfg).values(), "cuda", dev)
+    params = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed + 11),
+                             device=dev)
+    eng = m["ServeEngine"](cfg, params, max_len=CB2_MAX_LEN, device=dev)
+    if set(eng.sparse_plans.values()) != {"cuda"}:
+        raise AssertionError(f"2-layer check: strategies {eng.sparse_plans}, not cuda")
+    rng = np.random.default_rng(args.seed + 11)
+    shared = rng.integers(0, cfg.vocab_size, 32)
+    reqs = [dict(prompt=np.concatenate([shared, rng.integers(0, cfg.vocab_size, k)]).astype(
+                 np.int32), max_new_tokens=g, rid=f"c{i}")
+            for i, (k, g) in enumerate(zip(CB2_SUFFIXES, CB2_GENS))]
+    configs = [dict(max_len=CB2_MAX_LEN, page_size=CB_PAGE, max_batch=CB2_LANES,
+                    prefix_sharing=on, chunked_prefill=on, prefill_chunk=CB2_CHUNK)
+               for on in (True, False)]
+    pages, _ = cb_pages(m, torch, reqs, 4 * CB2_MAX_LEN // CB_PAGE, configs)
+    want = {}
+    for r in reqs:
+        out, _ = eng.generate(r["prompt"][None], r["max_new_tokens"])
+        rows = cb_logit_rows(torch, ttr, cfg, params, r["prompt"], r["max_new_tokens"],
+                             CB2_MAX_LEN, dev)
+        want[r["rid"]] = (out[0, len(r["prompt"]):].tolist(), rows)
+    for kw in configs:
+        sched = eng.make_scheduler(num_pages=pages, record_logits=True, **kw)
+        before = kops.launches["bsr_spmm"]
+        cb_drive(sched, reqs)
+        torch.cuda.synchronize()
+        n_k2 = kops.launches["bsr_spmm"] - before
+        worst, same = 0.0, True
+        for rid, (tokens, rows) in want.items():
+            req = sched.requests[rid]
+            same &= req.tokens == tokens
+            for got, ref in zip(req.logits, rows):
+                worst = max(worst, rel_err(torch.as_tensor(got, device=dev), ref)[1])
+        st = sched.stats
+        ok = same and worst <= SERVE_TOL and st["evictions"] >= 1 and n_k2 > 0
+        print(f"  2 layers, float32, {pages} pages of {CB_PAGE}, {CB2_LANES} lanes, prefix "
+              f"sharing and chunked prefill {'on' if kw['prefix_sharing'] else 'off'}: "
+              f"evictions {st['evictions']} resumes {st['resumes']} prefix_hits "
+              f"{st['prefix_hits']} pages_shared {st['pages_shared']} cow_copies "
+              f"{st['cow_copies']} prefill_chunks {st['prefill_chunks']}; K2 launches {n_k2}; "
+              f"greedy tokens equal generate's: {same}; logits rel err max {worst:.3e} "
+              f"tol {SERVE_TOL:g} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("continuous batching, 2-layer float32 check failed")
+    del params, eng, want
+    torch.cuda.empty_cache()
+
+
+def cb_check_cache(args, torch, m, dev):
+    """Check 2: the paged cache of the full-width model on the card, in
+    bfloat16: write_prefill of a random dense cache, then gather, read_dense,
+    evict to host and resume give back the same bits, and the zero page
+    stays zero."""
+    from repro_torch.serve.paged_cache import PagedKVCache, flatten, unflatten
+
+    cfg = replace(m["get_config"]("llama3-8b-sable"), param_dtype="bfloat16")
+    kv = PagedKVCache(cfg, num_pages=40, page_size=CB_PAGE, max_len=CB_MAX_LEN, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    n = 500
+    leaves, spec = flatten(m["ttr"].init_cache(cfg, 1, n, device=dev))
+    dense = [torch.randn(tuple(x.shape), generator=gen, device=dev).to(x.dtype) for x in leaves]
+    kv.alloc_seq("a", n, zero=False)
+    kv.write_prefill("a", unflatten(spec, dense), n)
+    ok = all(torch.equal(a, b) for a, b in zip(flatten(kv.read_dense("a"))[0], dense))
+    view = flatten(kv.gather(["a", None]))[0]
+    ok &= all(torch.equal(v[:, :1, :n], d) and not bool(v[:, :1, n:].any())
+              and not bool(v[:, 1].any()) for v, d in zip(view, dense))
+    kv.evict("a")
+    held = kv.allocator.num_held
+    ok &= kv.resume("a") and held == 0
+    ok &= all(torch.equal(a, b) for a, b in zip(flatten(kv.gather(["a", None]))[0], view))
+    ok &= not any(bool(a[kv.zero_page].any()) for a in kv._arenas)
+    print(f"  paged cache on the card ({cfg.n_layers} layers, {n} tokens, bfloat16, arenas "
+          f"{tuple(kv._arenas[0].shape)} x {len(kv._arenas)}): write_prefill, read_dense, gather, "
+          f"evict, resume give the same bits, zero page zero: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("paged cache round trip on the card failed")
+    del kv, dense, view
+    torch.cuda.empty_cache()
+
+
+def phase_continuous(args, torch, kops, dev, serve_tps):
+    """Phase 10: llama3-8b-sable served by the continuous-batching
+    scheduler at full width, K2 pinned. Returns K2's cb_* JSON keys."""
+    import numpy as np
+
+    from repro_torch.serve.paged_cache import PagedKVCache
+
+    m = serve_modules()
+    ttr, tlin = m["ttr"], m["tlin"]
+    print("phase 10: continuous batching of llama3-8b-sable (paged KV cache, scheduler, "
+          "ServeEngine.serve)")
+    with temp_plans(m):
+        cb_check_two_layers(args, torch, kops, m, dev)
+    cb_check_cache(args, torch, m, dev)
+
+    cfg = replace(m["get_config"]("llama3-8b-sable"), param_dtype="bfloat16")
+    pats = tuple(m["tlayers"].sable_patterns(cfg).values())
+    rng = np.random.default_rng(args.seed + 13)
+    lengths = rng.integers(CB_PROMPTS[0], CB_PROMPTS[1] + 1, CB_REQUESTS)
+    gens = rng.integers(CB_GENS[0], CB_GENS[1] + 1, CB_REQUESTS)
+    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, int(p)).astype(np.int32),
+                 max_new_tokens=int(g), rid=f"r{i}", patterns=pats)
+            for i, (p, g) in enumerate(zip(lengths, gens))]
+    kw = dict(max_len=CB_MAX_LEN, page_size=CB_PAGE, max_batch=CB_LANES)
+    t0 = time.perf_counter()
+    pages, sims = cb_pages(m, torch, reqs, CB_PAGES_FROM, [kw])
+    sim_stats, sim_transcript = sims[0]
+    print(f"  traffic: {CB_REQUESTS} requests, prompts {int(lengths.min())}-{int(lengths.max())} "
+          f"tokens, {int(gens.min())}-{int(gens.max())} greedy new tokens, one arriving a step; "
+          f"{CB_LANES} lanes, page_size {CB_PAGE}, max_len {CB_MAX_LEN}; {pages} pages "
+          f"({pages * 2 * cfg.n_layers * CB_PAGE * cfg.n_kv_heads * cfg.head_dim * 2 / 1e9:.3f} "
+          f"GB of arena), the largest count from {CB_PAGES_FROM} down whose schedule evicts "
+          f"(found on the CPU in {time.perf_counter() - t0:.1f} s: {sim_stats['evictions']} "
+          f"evictions)")
+
+    with temp_plans(m):
+        pin_strategy(m, pats, "cuda", dev)
+        params = ttr.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed),
+                                 device=dev)
+        eng = m["ServeEngine"](cfg, params, max_len=CB_MAX_LEN, device=dev)
+        if set(eng.sparse_plans.values()) != {"cuda"}:
+            raise AssertionError(f"strategies {eng.sparse_plans}, not cuda")
+        sched = eng.make_scheduler(num_pages=pages, **kw)
+        spans = []
+
+        def timed(fn):
+            def run(*a, **k):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                spans.append((sched.stats["steps"], start, end))
+                return out
+            return run
+
+        sched.kv.gather = timed(sched.kv.gather)
+        sched.kv.append_token = timed(sched.kv.append_token)
+        steps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9
+        kops.reset_launches()
+        t0 = time.perf_counter()
+        cb_drive(sched, reqs, timed=steps)
+        wall = time.perf_counter() - t0
+        n_k2 = kops.launches["bsr_spmm"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        st = sched.stats
+        forwards = sum(1 for ev, _, _ in steps if ev["running"])
+        prefills = st["admissions"] - st["resumes"]
+        want_k2 = 3 * cfg.n_layers * (forwards + prefills)
+        pure = [i for i, (ev, _, _) in enumerate(steps) if ev["running"] and not (
+            ev["admitted"] or ev["resumed"] or ev["evicted"])]
+        top = next(i for i, (_, _, gb) in enumerate(steps) if gb == steps[-1][2])
+        ev_top = steps[top][0]
+        step_ms = statistics.median(steps[i][1] for i in pure)
+        per_step = {}
+        for k, a, b in spans:
+            per_step[k] = per_step.get(k, 0.0) + a.elapsed_time(b)
+        gs_ms = statistics.median(per_step[i] for i in pure)
+        print(f"  served {st['finished']} requests in {wall:.3f} s: {st['finished'] / wall:.3f} "
+              f"requests/s, {st['decode_tokens'] / wall:.1f} decode tokens/s; steps "
+              f"{st['steps']} (decode forwards {forwards}, median pure decode step "
+              f"{step_ms:.3f} ms over {len(pure)}), admissions {st['admissions']} (prefills "
+              f"{prefills}), evictions {st['evictions']}, resumes {st['resumes']}; "
+              f"gather+scatter {gs_ms:.3f} ms a decode step (CUDA events, median); peak "
+              f"{peak:.3f} GB ({held:.3f} held before the run; reached at step {top}: admitted "
+              f"{ev_top['admitted']}, resumed {ev_top['resumed']}, {len(ev_top['running'])} "
+              f"lanes decoding); K2 launches {n_k2} (96 x (forwards + prefills) = {want_k2}); "
+              f"phase 9's generate (b): {serve_tps:.1f} tokens/s")
+        checks = {
+            "all finished": st["finished"] == CB_REQUESTS,
+            "evicted and resumed": st["evictions"] >= 1 and st["resumes"] >= 1,
+            "K2 launches": n_k2 >= want_k2 > 0,
+            "the CPU schedule": sched.transcript == sim_transcript,
+        }
+        outs = {}
+        for r in reqs[:4]:
+            out, _ = eng.generate(r["prompt"][None], r["max_new_tokens"])
+            outs[r["rid"]] = (out[0, len(r["prompt"]):].tolist(), sched.requests[r["rid"]].tokens)
+        agree = sum(sum(a == b for a, b in zip(x, y)) for x, y in outs.values())
+        total = sum(len(x) for x, _ in outs.values())
+        print(f"  greedy tokens of requests r0-r3 that equal generate's on each alone: {agree} "
+              f"of {total} (reported, not gated: bfloat16 paths differ)")
+
+        # check 4: a restart on the same plan store stages nothing
+        staged_first = st["plans_staged"]
+        tlin._STRATEGY_REGISTRY.clear()
+        warm = m["ServeEngine"](cfg, params, max_len=CB_MAX_LEN, device=dev)
+        sched2 = warm.make_scheduler(num_pages=pages, **kw)
+        cb_drive(sched2, [dict(r, max_new_tokens=4) for r in reqs[:2]])
+        checks["warm restart stages 0"] = (sched2.stats["plans_staged"] == 0
+                                           and warm.warmup_stats["plans_staged"] == 0)
+        print(f"  plans staged: first scheduler {staged_first}, a second one on the same plan "
+              f"store {sched2.stats['plans_staged']} (engine warmup {warm.warmup_stats})")
+        del warm, sched2
+
+        # one decode step of 8 lanes under the profiler
+        sched3 = eng.make_scheduler(num_pages=pages, **kw)
+        for i in range(CB_LANES):
+            sched3.submit(rng.integers(0, cfg.vocab_size, CB_PROFILE_P), 8, rid=f"p{i}")
+        sched3.step()  # admits and prefills all eight, decodes once
+        prof = serve_breakdown(
+            torch, m, f"one continuous-batching decode step, {CB_LANES} lanes at position "
+            f"{CB_PROFILE_P + 1}", sched3.step,
+            extra=[(PagedKVCache, "gather", "paged: gather view"),
+                   (PagedKVCache, "append_token", "paged: scatter (append_token)")])
+        rids = [r.rid for r in sched3.lanes]
+        g_ms = median_ms(lambda: sched3.kv.gather(rids), args.reps)
+        g_bytes = len(rids) * sched3.kv.view_pages * sum(a[0].numel() * a.element_size()
+                                                         for a in sched3.kv._arenas)
+        g_bound = 2 * g_bytes / HBM_BYTES_PER_S * 1e3
+        # the same copy over 8-byte words (a lever for later: the index
+        # kernel's per-element cost is paid per 2-byte element above)
+        tables = sched3.kv._index([sched3.kv._full_table(r) for r in rids]).reshape(
+            len(rids), -1)
+        wide_ms = median_ms(lambda: [a.view(torch.int64).movedim(1, 0)[:, tables]
+                                     for a in sched3.kv._arenas], args.reps)
+        print(f"  the paged gather alone, {len(rids)} lanes x {sched3.kv.view_pages} pages: "
+              f"ms={g_ms:.4f} (CUDA events, median of {args.reps}); it reads and writes "
+              f"{g_bytes / 1e9:.4f} GB: bound {g_bound:.4f} ms (bytes); the same index over "
+              f"int64 views of the arenas ms={wide_ms:.4f}")
+        del sched3, sched, eng, params
+    torch.cuda.empty_cache()
+    failed = [k for k, ok in checks.items() if not ok]
+    print(f"  checks: {', '.join(f'{k} {ok}' for k, ok in checks.items())}")
+    if failed:
+        raise AssertionError(f"continuous batching: {failed} failed")
+    return dict(cb_launches=n_k2, cb_decode_step_ms=step_ms, cb_gather_scatter_ms=gs_ms,
+                cb_gather_ms=g_ms, cb_gather_bound_ms=g_bound, cb_gather_int64_ms=wide_ms,
+                cb_busy_ms=None if prof is None else prof["busy_ms"])
 
 
 def main() -> int:
@@ -1679,7 +2042,10 @@ def main() -> int:
     tile_records, winners = phase_tuning(args, torch, kops, kref, mats, call_times, dev)
 
     # -- phase 9 -----------------------------------------------------------
-    ffn_records, serve_k2 = phase_serve(args, torch, kops, kref, dev)
+    ffn_records, serve_k2, serve_tps = phase_serve(args, torch, kops, kref, dev)
+
+    # -- phase 10 ----------------------------------------------------------
+    cb_keys = phase_continuous(args, torch, kops, dev, serve_tps)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -1714,6 +2080,8 @@ def main() -> int:
                         extra[f"{key}_{k}"] = r[k]
         if kname in ("bsr_spmv", "bsr_spmm"):  # phase 8's cold tunes' winners
             extra["tune_winners"] = winners["spmv" if kname == "bsr_spmv" else "spmm"]
+        if kname == "bsr_spmm":  # phase 10: launches and step times under continuous batching
+            extra.update(cb_keys)
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

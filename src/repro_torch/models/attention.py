@@ -72,12 +72,17 @@ def _sdpa_chunked(q, k, v, q_offset: int, causal: bool, chunk: int) -> torch.Ten
     return out.to(q.dtype)
 
 
-def causal_mask(sq: int, sk: int, offset: int, device=None) -> torch.Tensor:
-    """(1,1,1,Sq,Sk) boolean: query i (global pos offset+i) sees key j<=pos."""
+def causal_mask(sq: int, sk: int, offset, device=None) -> torch.Tensor:
+    """Boolean, query i (global pos offset+i) sees key j<=pos: (1,1,1,Sq,Sk)
+    for an int ``offset``, (B,1,1,Sq,Sk) for a (B,) tensor of per-lane
+    offsets."""
     dev = resolve_device(device)
+    kpos = torch.arange(sk, device=dev)
+    if isinstance(offset, torch.Tensor):
+        qpos = offset.to(dev)[:, None] + torch.arange(sq, device=dev)  # (B, Sq)
+        return (kpos <= qpos[..., None])[:, None, None]
     qpos = offset + torch.arange(sq, device=dev)[:, None]
-    kpos = torch.arange(sk, device=dev)[None, :]
-    return (kpos <= qpos)[None, None, None]
+    return (kpos[None, :] <= qpos)[None, None, None]
 
 
 # ---------------------------------------------------------------------- #
@@ -108,13 +113,15 @@ def gqa_apply(
     cfg: ModelConfig,
     positions: torch.Tensor,  # (S,) or (B,S) global positions of x tokens
     cache: Optional[dict] = None,
-    cache_pos: Optional[int] = None,  # write offset into the cache
+    cache_pos=None,  # write offset into the cache: an int, or (B,) per lane
     causal: bool = True,
 ):
     """x: (B, S, d) -> (out (B, S, d), cache). With ``cache`` the new keys
     and values are written into it in place at [cache_pos, cache_pos + S),
     and the queries attend over the whole cache, masked causally at their
-    global positions."""
+    global positions. A (B,) tensor ``cache_pos`` gives each lane its own
+    offset (the scheduler's batched decode over lanes at different
+    positions): an indexed write on the batch axis, a per-lane mask."""
     B, S, d = x.shape
     H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // Kv
@@ -127,9 +134,16 @@ def gqa_apply(
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
+    per_lane = isinstance(cache_pos, torch.Tensor)
     if cache is not None:
-        cache["k"][:, cache_pos:cache_pos + S] = k
-        cache["v"][:, cache_pos:cache_pos + S] = v
+        if per_lane:
+            lanes = torch.arange(B, device=x.device)[:, None]
+            slots = cache_pos.to(x.device)[:, None] + torch.arange(S, device=x.device)
+            cache["k"][lanes, slots] = k.to(cache["k"].dtype)
+            cache["v"][lanes, slots] = v.to(cache["v"].dtype)
+        else:
+            cache["k"][:, cache_pos:cache_pos + S] = k
+            cache["v"][:, cache_pos:cache_pos + S] = v
         k_all, v_all = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
         q_offset = cache_pos
     else:
@@ -138,7 +152,7 @@ def gqa_apply(
 
     qg = q.reshape(B, S, Kv, G, Dh)
     chunk = cfg.attn_chunk
-    if chunk and S > 1 and k_all.shape[1] >= 2 * chunk:
+    if chunk and S > 1 and k_all.shape[1] >= 2 * chunk and not per_lane:
         out = _sdpa_chunked(qg, k_all, v_all, q_offset, causal, chunk)
     else:
         mask = causal_mask(S, k_all.shape[1], q_offset, x.device) if causal else None

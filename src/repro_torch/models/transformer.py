@@ -275,11 +275,17 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, cache, start: int, enc_out=N
     return _unembed(params, cfg, x[:, -1:]), new_cache
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, pos: int, enc_out=None):
-    """One decode step. token: (B, 1) integer, pos: its position (an int)."""
+def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
+    """One decode step. token: (B, 1) integer; pos: its position, an int
+    for the whole batch or a (B,) integer tensor, one per lane (each lane
+    writes its cache at its own position and attends up to it)."""
     _no_encoder(enc_out)
     x = _embed(params, cfg, token)
-    positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32, device=token.device)
+    if isinstance(pos, torch.Tensor):
+        positions = pos.to(device=token.device, dtype=torch.int32).reshape(-1, 1)
+    else:
+        positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
+                               device=token.device)
     x, new_cache, _ = _run_groups(cfg, cfg.groups, params["groups"], x, positions, cache,
                                   pos, cfg.causal)
     return _unembed(params, cfg, x), new_cache

@@ -1,13 +1,13 @@
-"""Serving engine, single-batch path (port of ``repro.serve.engine``'s
-``ServeEngine.__init__`` and ``generate``).
+"""Serving engine (port of ``repro.serve.engine``).
 
   engine = ServeEngine(cfg, params, max_len=96)        # device=None: the card
   tokens, stats = engine.generate(prompts, max_new_tokens=32)
+  results, sched = engine.serve([{"prompt": p, "max_new_tokens": 16}, ...])
 
 ``generate`` prefills once and decodes in lockstep on one preallocated dense
-cache. It is the reference's numeric reference path, which its continuous
-batching scheduler is pinned against; ``serve()`` and ``make_scheduler()``
-raise until the scheduler slice ports that scheduler and the paged cache.
+cache: the numeric reference path. ``serve`` is request-level continuous
+batching over the paged KV cache (``scheduler.py``, ``paged_cache.py``),
+whose greedy tokens equal ``generate`` on each request alone.
 
 Startup warmup resolves the sparse-matmul plans of a SABLE model before the
 first request and is restart-aware: when the persistent plan cache
@@ -26,13 +26,6 @@ from ..models.config import ModelConfig
 from ..models.transformer import decode_step, init_cache, prefill
 
 __all__ = ["ServeEngine"]
-
-
-def _not_until_scheduler(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with the scheduler slice "
-        "(serve/scheduler.py, serve/paged_cache.py)"
-    )
 
 
 def _leaves(tree, path=()):
@@ -155,13 +148,36 @@ class ServeEngine:
         return torch.argmax(logits, dim=-1, keepdim=True), cache
 
     # ------------------------------------------------------------------ #
-    # request-level serving: the scheduler slice
+    # request-level serving (continuous batching over the paged cache)
     # ------------------------------------------------------------------ #
     def make_scheduler(self, *, max_len=None, **kw):
-        raise _not_until_scheduler("ServeEngine.make_scheduler (continuous batching)")
+        """A ContinuousBatchingScheduler on this engine's model and device.
+        kwargs pass through (page_size, num_pages, max_batch, policy,
+        clock, plan_cache, record_logits, prefix_sharing, chunked_prefill,
+        prefill_chunk, ...)."""
+        from .scheduler import ContinuousBatchingScheduler
+
+        return ContinuousBatchingScheduler(
+            self.cfg, self.params, max_len=self.max_len if max_len is None else max_len,
+            device=self.device, **kw,
+        )
 
     def serve(self, requests, *, max_steps: int = 100_000, **kw):
-        raise _not_until_scheduler("ServeEngine.serve (continuous batching)")
+        """Submit ``requests`` (dicts of ``submit`` kwargs: prompt,
+        max_new_tokens, temperature, generator or seed, patterns, rid,
+        arrival) and run the scheduler to completion. Returns ``(results,
+        scheduler)``, results mapping rid -> {tokens, prompt_len, metrics,
+        state}. (An encoder-decoder config never gets here: the constructor
+        refuses it until the encoder-decoder slice.)"""
+        self.warmup_stats["paged"] = True
+        sched = self.make_scheduler(**kw)
+        for r in requests:
+            sched.submit(**r)
+        results = sched.run(max_steps=max_steps)
+        # page-sharing effectiveness beside the plan-warmup stats
+        for k in ("prefix_hits", "pages_shared", "cow_copies"):
+            self.warmup_stats[k] = sched.stats[k]
+        return results, sched
 
     # ------------------------------------------------------------------ #
     # single-batch path (the numeric reference)

@@ -19,6 +19,7 @@ from repro_torch.kernels import ops as tkops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import testing as ttesting  # noqa: E402
 from repro_torch.sparse import block_csr as tbc  # noqa: E402
+from test_torch_linear import _sealed_reference_plans  # noqa: E402,F401 (autouse)
 
 # float32 throughout, as tests/test_bsr_ops.py: the same products summed in
 # another order agree to 1e-5

@@ -47,6 +47,36 @@ def _card(request):
         pytest.skip("needs a CUDA device to launch the kernels")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _sealed_reference_plans():
+    """Leave the JAX package's process-wide plan state as this module found
+    it: its strategy registry, its default plan cache, its format trackers
+    and tuning counters. A reference run here (``jx``, a module-scoped JAX
+    scheduler) fills the registry, and a reference test that later counts
+    staged plans in a fresh cache on the same worker would find them warm.
+    Module scope: an autouse fixture is set up before the other fixtures of
+    its scope and torn down after them, so the snapshot precedes every
+    module-scoped reference run and the restore follows its teardown. The
+    port's other test files import it."""
+    try:
+        from repro.core import autotune as jautotune
+        from repro.core import cache as jcache
+        from repro.core import cost_model as jcost
+        from repro.sparse import linear as jlin
+    except ImportError:  # no JAX here: nothing of the reference can run
+        yield
+        return
+    registry = dict(jlin._STRATEGY_REGISTRY)
+    default, explicit = jcache._DEFAULT, jcache._DEFAULT_EXPLICIT
+    yield
+    jlin._STRATEGY_REGISTRY.clear()
+    jlin._STRATEGY_REGISTRY.update(registry)
+    jcache._DEFAULT, jcache._DEFAULT_EXPLICIT = default, explicit
+    jautotune.reset_structure_trackers()
+    jautotune.reset_autotune_stats()
+    jcost.reset_cost_model_stats()
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The reference's linear module, on JAX's CPU device in full float32."""

@@ -24,6 +24,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import config as tconfig  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttr  # noqa: E402
+from test_torch_linear import _sealed_reference_plans  # noqa: E402,F401 (autouse)
 
 CPU = "cpu"
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -23,6 +23,7 @@ from repro_torch.configs import deepseek_v2_236b as tds  # noqa: E402
 from repro_torch.convert import params_from_arrays  # noqa: E402
 from repro_torch.models import config as tconfig  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from test_torch_linear import _sealed_reference_plans  # noqa: E402,F401 (autouse)
 
 # float32, as tests/test_bsr_ops.py: the same sums in another order agree
 # to 1e-5 (the aux loss to 1e-6 relative)

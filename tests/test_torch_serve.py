@@ -24,6 +24,7 @@ from repro_torch.launch import serve as tlaunch  # noqa: E402
 from repro_torch.models import transformer as ttr  # noqa: E402
 from repro_torch.serve import engine as tengine  # noqa: E402
 from repro_torch.sparse import linear as tlin  # noqa: E402
+from test_torch_linear import _sealed_reference_plans  # noqa: E402,F401 (autouse)
 
 CPU = "cpu"
 
@@ -137,21 +138,20 @@ def test_cli_generates_on_cpu(plan_dir, capsys, monkeypatch):
 
 
 def test_cli_and_engine_refuse_what_is_left_out(plan_dir, monkeypatch):
-    """Without --device the CLI wants the card and raises without one; the
-    scheduler, sharding and encoder-decoder serving raise until their
-    slices."""
+    """Without --device the CLI wants the card and raises without one, with
+    --continuous too; sharding (the engine's and the scheduler's mesh=) and
+    encoder-decoder serving raise until their slices."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         tlaunch.main(["--arch", "llama3-8b-sable", "--reduced"])
-    with pytest.raises(NotImplementedError, match="scheduler slice"):
-        tlaunch.main(["--arch", "llama3-8b", "--reduced", "--device", "cpu", "--continuous"])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tlaunch.main(["--arch", "llama3-8b", "--reduced", "--continuous"])
     cfg = _f32(tconfigs.get_config("llama3.2-3b", reduced=True))
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
     eng = tengine.ServeEngine(cfg, params, max_len=8, device=CPU)
-    with pytest.raises(NotImplementedError, match="scheduler slice"):
-        eng.serve([])
-    with pytest.raises(NotImplementedError, match="scheduler slice"):
-        eng.make_scheduler()
+    assert eng.serve([])[0] == {}
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        eng.make_scheduler(mesh=object())
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         eng.generate(torch.zeros((1, 2), dtype=torch.long), 2, src_embeds=np.zeros((1, 2, 4)))
     with pytest.raises(ValueError, match="max_len"):

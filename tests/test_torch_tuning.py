@@ -25,6 +25,7 @@ from repro_torch.core import reblock as treblock  # noqa: E402
 from repro_torch.core import staging as tstaging  # noqa: E402
 from repro_torch.core import vbr as tvbr  # noqa: E402
 from repro_torch.core.staging import StagingOptions, stage_spmm, stage_spmv  # noqa: E402
+from test_torch_linear import _sealed_reference_plans  # noqa: E402,F401 (autouse)
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 TOL = 2e-4
