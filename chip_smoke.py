@@ -142,7 +142,43 @@ Phases, each printing its lines:
             of four requests equal generate's on each alone (bfloat16 paths
             differ; not gated), the gather alone at those 8 lanes (CUDA
             events) beside its bytes bound, and phase 9's generate
-            tokens/s beside.
+            tokens/s beside;
+11. moe serve  drives the port's serving path on the MoE models, dropless
+            (K3 for the first matmuls, K2 for the second): (a) K3 and K2 at
+            llama4-scout's tables (16 experts of d_ff 8192, top-1, d_model
+            5120: bn = tk = 8192) at prefill (B=4, S=512) and decode (B=8),
+            both dtypes, each against its plain version (on sampled slots
+            and panels) and timed after an L2 flush beside its bound, the
+            plain version and the library call (sampled_addmm for K3,
+            sparse_csr_tensor(...) @ x for K2), float32 launched twice for
+            the same bits; (b) DeepSeek-V2-236B (layer 0 dense, one MoE
+            layer) and llama4-scout (one layer) at full width in float32
+            (TF32 off): the dropless prefill logits against the capacity
+            path's with capacity_factor = E / top_k, and 4 greedy decode
+            steps (the absorbed MLA for DeepSeek-V2) against a prefill over
+            the longer sequence, within 1e-4 of max|logits|, the same
+            tokens; (c) DeepSeek-V2 at its published widths cut to 1 dense
+            and 4 MoE layers (34.55 GB of bfloat16 params from --seed)
+            through ServeEngine.generate, 4 prompts of 512 tokens and 32
+            greedy new tokens: K3 must launch 2 and K2 1 times a MoE layer
+            a forward (the counts zeroed just before and read just after);
+            prefill ms, decode ms a step, tokens/s, peak memory, a
+            torch.profiler breakdown of the prefill and one decode step (MLA
+            attention, router and dispatch, the expert FFN's glue, K3, K2,
+            combine, shared experts, dense FFN, head, the device's busy
+            share), and K3 and K2 at the first MoE layer's own tables at
+            prefill and at decode; (d) the same model through
+            ServeEngine.serve: 8 requests of 128-512 prompt tokens and 16-32
+            greedy new tokens (lengths from --seed), one arriving a step, on
+            4 lanes, page_size 16, and the largest page count whose schedule
+            evicts (found on the CPU, repeated on the card exactly): every
+            request finishes, at least one eviction and resume, K3 and K2
+            launch 2 and 1 times a MoE layer a forward or prefill; wall s,
+            requests/s, decode tokens/s, the median decode step, and how
+            many greedy tokens of two requests equal generate's on each
+            alone (not gated); (e) llama4-scout at full width cut to 2
+            layers (12.9 GB of bfloat16 params) through generate, 4 prompts
+            of 256 tokens, 8 new tokens, K3 and K2 launching as in (c).
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -157,7 +193,11 @@ tuner's other tiles, with the launches of phase 8's cold tunes, and
 tune_winners; ffn_{prefill,decode}_{bf16,f32}_* and ffn_out_* keys for K2 at
 the FFN shapes, with the pinned-cuda serve's launches; cb_* keys on K2 for
 phase 10: its launches, the median decode step and its gather and scatter,
-the gather alone beside its bound, and the profiled step's device busy ms) and {"ok": true, "device": {...}}.
+the gather alone beside its bound, and the profiled step's device busy ms;
+l4_{prefill,decode}_{bf16,f32}_* keys for K2 and K3 at llama4-scout's
+tables, launches from phase 11's llama4-scout generate; ds_{prefill,decode}
+_bf16_* at the served DeepSeek-V2's tables, launches from its generate, and
+ds_serve_launches from its serve) and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -554,10 +594,11 @@ def sample_slots(torch, topo, seed, n=60, n_pad=4):
     return torch.sort(pick).values
 
 
-def time_sdd(args, torch, kops, kref, p, a, topo, name):
+def time_sdd(args, torch, kops, kref, p, a, topo, name, flush=None, n_sample=60):
     """K3 at the path's tables (all slots, padding included) beside its
-    bound, its plain version on sampled slots and the library call, in the
-    layer's dtype; at prefill also on the same slots ordered by expert."""
+    bound, its plain version on ``n_sample`` sampled slots and the library
+    call, in the layer's dtype, each timed call after ``flush()`` if given;
+    at prefill also on the same slots ordered by expert."""
     from repro_torch.kernels import _build
 
     ext = _build.load_kernels()
@@ -571,20 +612,20 @@ def time_sdd(args, torch, kops, kref, p, a, topo, name):
     out = torch.empty((nnz, bm, bn), dtype=dtype, device=dev)
     launch = lambda: ext.bsr_sdd(a, w, rows, cols, out, body == "cp.async")  # noqa: E731
     launch()
-    pick = sample_slots(torch, topo, args.seed + 1)
+    pick = sample_slots(torch, topo, args.seed + 1, n=n_sample)
     sample = (rows[pick], cols[pick])
     plain = lambda: kref.bsr_sdd_ref(a, w, *sample, bm, bn)  # noqa: E731
     tag = f"bsr_sdd {name} {str(dtype)[6:]}"
     err = check(f"{tag} tables ({len(pick)} sampled slots) kernel vs plain", out[pick],
                 plain(), dtype)
     first = out.clone()
-    ms = median_ms(launch, args.reps)
+    ms = median_ms(launch, args.reps, flush)
     same_bits(f"{tag} tables, last timed launch", first, out)
     del first
     out_s = torch.empty((len(pick), bm, bn), dtype=dtype, device=dev)
     sample_ms = median_ms(lambda: ext.bsr_sdd(a, w, *sample, out_s, body == "cp.async"),
-                          args.reps)
-    plain_ms = median_ms(plain, args.reps)
+                          args.reps, flush)
+    plain_ms = median_ms(plain, args.reps, flush)
     # the valid slots' a rows and each used expert's weight block read once,
     # every slot's block written once; padding slots do no work
     valid = rows < topo.n_block_rows
@@ -593,7 +634,7 @@ def time_sdd(args, torch, kops, kref, p, a, topo, name):
     need = (n_a * bm * K + n_b * K * bn + nnz * bm * bn) * a.element_size() + nbytes(rows, cols)
     ops = 2 * n_valid * bm * bn * K
     bound = bound_fields(need, ops, dtype)
-    lib_ms, lib_txt = sdd_library(torch, a, w, topo, out, n_valid, args.reps)
+    lib_ms, lib_txt = sdd_library(torch, a, w, topo, out, n_valid, args.reps, flush)
     print(f"  {tag}: slots={nnz} ({n_valid} valid) bm={bm} bn={bn} K={K} "
           f"body={body_label(dtype, body)} ms={ms:.4f} {bound_text(bound, need, ops)} "
           f"roofline_share={bound['bound_ms'] / ms:.3f}; on {len(pick)} sampled slots: "
@@ -604,20 +645,21 @@ def time_sdd(args, torch, kops, kref, p, a, topo, name):
         order = torch.sort(torch.where(valid, cols, cols.max() + 1), stable=True).indices
         r2, c2 = rows[order].contiguous(), cols[order].contiguous()
         by_ms = median_ms(lambda: ext.bsr_sdd(a, w, r2, c2, out, body == "cp.async"),
-                          args.reps)
+                          args.reps, flush)
         print(f"  {tag} tables with the slots ordered by expert (one run per expert): "
               f"ms={by_ms:.4f}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 body=body_label(dtype, body), **bound)
 
 
-def time_dsd(args, torch, kops, kref, p, a, topo, name):
+def time_dsd(args, torch, kops, kref, p, a, topo, name, flush=None, n_panels=16):
     """K2 at the dsd tables as bsr_ops.dsd builds them (m_pad = M, row
     offsets over the real row tiles only): the activations h against the
     stacked w2, in the layer's dtype, beside its bound, its plain version on
-    a few whole 64-row panels (the runs a bfloat16 CTA walks) and the library
-    call. The timed launch's own output is held against the plain version on
-    those panels."""
+    ``n_panels`` whole 64-row panels (the runs a bfloat16 CTA walks) and the
+    library call, each timed call after ``flush()`` if given. The timed
+    launch's own output is held against the plain version on those panels;
+    in float32 it must be the first launch's bits."""
     from repro_torch.kernels import _build, bsr_ops
 
     ext = _build.load_kernels()
@@ -646,13 +688,18 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
     rptr, sched, partial = tables(rows)
     y = torch.empty((M, d), dtype=x2.dtype, device=dev)
     launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x2, y, sched, partial)  # noqa: E731
-    ms = median_ms(launch, args.reps)
+    launch()
+    first = y.clone() if dtype == torch.float32 else None
+    ms = median_ms(launch, args.reps, flush)
+    if first is not None:
+        same_bits(f"bsr_spmm dsd {name} float32 tables, last timed launch", first, y)
+    del first
     # a few whole panels of 64 / bm row tiles that hold tiles, and their tiles
     n_valid = int(topo.n_blocks)
     panel = 64 // bm
     live = torch.unique(rows[:n_valid] // panel)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 2)
-    pick = torch.randperm(live.numel(), generator=gen, device=dev)[:16]
+    pick = torch.randperm(live.numel(), generator=gen, device=dev)[:n_panels]
     panels = torch.sort(live[pick]).values
     sel = torch.isin(rows[:n_valid] // panel, panels).nonzero().squeeze(1)
     s_tiles, s_rows, s_cols = tiles[sel].contiguous(), rows[sel], cols[sel]
@@ -665,8 +712,8 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
     s_tables = tables(s_rows)
     ys = torch.empty_like(y)
     sample_ms = median_ms(lambda: ext.bsr_spmm(s_tiles, s_tables[0], s_cols, x2, ys,
-                                               *s_tables[1:]), args.reps)
-    plain_ms = median_ms(plain, args.reps)
+                                               *s_tables[1:]), args.reps, flush)
+    plain_ms = median_ms(plain, args.reps, flush)
     del ys
     # the valid tiles and each used expert's w2 block read once, y written
     # once; padding tiles are not visited
@@ -677,10 +724,11 @@ def time_dsd(args, torch, kops, kref, p, a, topo, name):
     bound = bound_fields(need, ops, dtype)
     del y
     torch.cuda.empty_cache()
-    lib_ms, lib_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, dtype, args.reps)
+    lib_ms, lib_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, dtype, args.reps,
+                                  flush)
     if dtype != torch.float32:
         _, lib32_txt = dsd_library(torch, kref, tiles[:n_valid], topo, x2, torch.float32,
-                                   args.reps)
+                                   args.reps, flush)
         lib_txt += f" (float32: {lib32_txt})"
     print(f"  {tag}: tiles={tiles.shape[0]} ({n_valid} valid) tm={bm} tk={f} n={d} "
           f"ms={ms:.4f} {bound_text(bound, need, ops)} "
@@ -756,7 +804,7 @@ def device_breakdown(torch, label, fn, top=6):
           f"(share {busy / wall_ms:.3f}); by kernel: {parts}")
 
 
-def sdd_library(torch, a, w, topo, out, n_valid, reps):
+def sdd_library(torch, a, w, topo, out, n_valid, reps, flush=None):
     """torch.sparse.sampled_addmm over the topology's element-level CSR, in
     a's dtype, held against K3's valid blocks; (ms or None, text)."""
     bm, bn = topo.block
@@ -780,10 +828,10 @@ def sdd_library(torch, a, w, topo, out, n_valid, reps):
 
     return library_time(f"bsr_sdd library call sampled_addmm ({str(a.dtype)[6:]}, valid slots)",
                         make, out[:n_valid], a.dtype, reps,
-                        select=lambda res: res.values().reshape(n_valid, bm, bn))
+                        select=lambda res: res.values().reshape(n_valid, bm, bn), before=flush)
 
 
-def dsd_library(torch, kref, tiles, topo, x, dtype, reps):
+def dsd_library(torch, kref, tiles, topo, x, dtype, reps, flush=None):
     """torch.sparse_csr_tensor(...) @ x (cuSPARSE) in ``dtype`` over the
     element-level CSR of the valid tiles, held against K2's plain version
     on the first tiles' rows; (ms or None, text)."""
@@ -809,7 +857,7 @@ def dsd_library(torch, kref, tiles, topo, x, dtype, reps):
 
     return library_time(f"bsr_spmm dsd library call sparse_csr_tensor(...) @ x "
                         f"({str(dtype)[6:]})", make, want, dtype, reps,
-                        select=lambda res: res[rows])
+                        select=lambda res: res[rows], before=flush)
 
 
 def l2_flush(torch):
@@ -1293,19 +1341,24 @@ def check_two_layers(args, torch, kops, m, dev):
     torch.cuda.empty_cache()
 
 
-class annotated:
-    """Within the block, the serving path's layers run inside
-    torch.profiler.record_function ranges (module attributes wrapped and
-    restored), so that a profile attributes device time to them."""
+def serve_targets(m):
+    """The serving path's layers, as (owner, attribute, label) ranges."""
+    ttr, tlin = m["ttr"], m["tlin"]
+    return [(ttr, "gqa_apply", "attention (gqa_apply)"),
+            (ttr, "ffn_apply", "FFN (ffn_apply)"),
+            (ttr, "_unembed", "head (final norm, lm_head)"),
+            (ttr, "_embed", "embedding"),
+            (tlin, "_transposed_tiles", "FFN: tile gather+transpose")]
 
-    def __init__(self, torch, m, extra=()):
-        ttr, tlin = m["ttr"], m["tlin"]
-        self.targets = [(ttr, "gqa_apply", "attention (gqa_apply)"),
-                        (ttr, "ffn_apply", "FFN (ffn_apply)"),
-                        (ttr, "_unembed", "head (final norm, lm_head)"),
-                        (ttr, "_embed", "embedding"),
-                        (tlin, "_transposed_tiles", "FFN: tile gather+transpose"),
-                        *extra]
+
+class annotated:
+    """Within the block, each (owner, attribute, label) target runs inside a
+    torch.profiler.record_function range of its label (module attributes
+    wrapped and restored), so that a profile attributes device time to
+    them. Targets may share a label."""
+
+    def __init__(self, torch, targets):
+        self.targets = list(targets)
         self.torch = torch
 
     def __enter__(self):
@@ -1319,23 +1372,23 @@ class annotated:
                     return _fn(*a, **k)
 
             setattr(mod, attr, wrapped)
-        return [label for _, _, label in self.targets]
+        return list(dict.fromkeys(label for _, _, label in self.targets))
 
     def __exit__(self, *exc):
-        for mod, attr, fn in self.saved:
+        for mod, attr, fn in reversed(self.saved):
             setattr(mod, attr, fn)
 
 
-def serve_breakdown(torch, m, label, fn, extra=()):
-    """One call of ``fn`` under torch.profiler inside ``annotated`` (with
-    ``extra`` (owner, attribute, label) ranges beside the layers, outside
-    them): device time (each range's kernels, summed) by layer, K2's and the
-    elementwise kernels' own time, and the device's busy share of the
-    wall."""
+def profile_ranges(torch, targets, fn, exclude=lambda name: False):
+    """One call of ``fn`` (after one unprofiled) under torch.profiler inside
+    ``annotated(targets)``. Returns (labels, {label: device ms of its
+    operations' kernels, those whose name ``exclude`` picks left out},
+    {kernel: [own, span, count]} of every kernel (see ``own_times``), busy
+    ms, wall ms); None if the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with annotated(torch, m, extra) as labels:
+    with annotated(torch, targets) as labels:
         fn()
         torch.cuda.synchronize()
         with warnings.catch_warnings():
@@ -1355,7 +1408,7 @@ def serve_breakdown(torch, m, label, fn, extra=()):
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
             continue
-        ms = sum(k.duration for k in e.kernels) / 1e3
+        ms = sum(k.duration for k in e.kernels if not exclude(k.name)) / 1e3
         p = e
         while p is not None:
             if p.name in ranges and e.id not in seen[p.name]:
@@ -1367,8 +1420,21 @@ def serve_breakdown(torch, m, label, fn, extra=()):
              and e.time_range.end > e.time_range.start]
     table, busy = own_times(spans)
     if busy == 0:
+        return None
+    return labels, ranges, table, busy, wall_ms
+
+
+def serve_breakdown(torch, m, label, fn, extra=()):
+    """One call of ``fn`` under torch.profiler with the serving path's
+    layers as ranges (and ``extra`` (owner, attribute, label) ranges beside
+    the layers, outside them): device time (each range's kernels, summed)
+    by layer, K2's and the elementwise kernels' own time, and the device's
+    busy share of the wall."""
+    got = profile_ranges(torch, serve_targets(m) + list(extra), fn)
+    if got is None:
         print(f"  profile {label}: device time not measured (the profiler saw none)")
         return None
+    labels, ranges, table, busy, wall_ms = got
     # K2 is launched from its binding, which the profiler links to no range:
     # its kernels' own time goes to the FFN by name
     k2 = sum(row[0] for k, row in table.items() if "bsr_spmm" in k or "combine_kernel" in k)
@@ -1907,6 +1973,404 @@ def phase_continuous(args, torch, kops, dev, serve_tps):
                 cb_busy_ms=None if prof is None else prof["busy_ms"])
 
 
+# ---------------------------------------------------------------------- #
+# phase 11: serving the MoE models (DeepSeek-V2 with MLA, llama4-scout)
+# ---------------------------------------------------------------------- #
+DS, L4 = "deepseek-v2-236b", "llama4-scout-17b-a16e"
+DS_MOE_LAYERS = 4  # the served DeepSeek-V2: its dense layer 0 and 4 of its 59 MoE layers
+DS_B, DS_P, DS_G = 4, 512, 32  # generate: prompts, prompt tokens, greedy new tokens
+DS_REQUESTS, DS_LANES, DS_PAGE = 8, 4, 16  # serve
+DS_PROMPTS, DS_GENS = (128, 512), (16, 32)  # inclusive ranges, drawn from --seed
+L4_LAYERS, L4_B, L4_P, L4_G = 2, 4, 256, 8  # llama4-scout's generate
+L4_SHAPES = {"prefill": (4, 512), "decode": (8, 1)}  # K3 and K2 at llama4-scout's tables
+CHECK_B, CHECK_P, CHECK_STEPS = 2, 256, 4  # the float32 checks at full width
+
+
+def moe_model(arch, moe_layers, dtype):
+    """``arch`` at its published widths, dropless, params and compute in
+    ``dtype``, cut in depth: DeepSeek-V2 keeps its dense layer 0 and
+    ``moe_layers`` of its MoE layers, llama4-scout ``moe_layers`` layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import LayerSpec, uniform_groups
+
+    cfg = get_config(arch)
+    if arch == DS:
+        g0, g1 = cfg.groups
+        groups = (g0, replace(g1, repeat=moe_layers))
+    else:
+        groups = uniform_groups(moe_layers, LayerSpec(mixer="gqa", ffn="moe"))
+    return replace(cfg, groups=groups, param_dtype=dtype, compute_dtype=dtype,
+                   moe=replace(cfg.moe, dropless=True))
+
+
+def moe_layers(cfg) -> int:
+    return sum(g.repeat for g in cfg.groups for s in g.layers if s.ffn == "moe")
+
+
+def param_counts(cfg, params) -> str:
+    """The params by part: one MoE layer, the dense layers, embed and head."""
+    from repro_torch.serve.engine import _leaves
+
+    total = sum(v.numel() for _, v in _leaves(params))
+    parts = {"total": total,
+             "embed and head": params["embed"].numel() + params["lm_head"].numel()}
+    for g, gp in zip(cfg.groups, params["groups"]):
+        n = sum(v.numel() for _, v in _leaves(gp)) // g.repeat
+        kind = "a MoE layer" if any(s.ffn == "moe" for s in g.layers) else "a dense layer"
+        parts[kind] = n
+    es = params["embed"].element_size()
+    return (", ".join(f"{k} {v / 1e9:.4f} G" for k, v in parts.items())
+            + f"; {total * es / 1e9:.3f} GB")
+
+
+def l4_kernels(args, torch, kops, kref, dev):
+    """11a: K3 and K2 at llama4-scout's dropless tables (16 experts of d_ff
+    8192, top-1, d_model 5120: bn = tk = 8192), at prefill (B=4, S=512) and
+    decode (B=8), in both dtypes: each held against its plain version and
+    timed after an L2 flush beside its bound, the plain version and the
+    library call; in float32 a second launch gives the same bits."""
+    from repro_torch.models import moe as tmoe
+
+    cfg = moe_model(L4, 1, "float32")
+    flush = l2_flush(torch)
+    records = {}
+    print(f"phase 11a: K3 and K2 at llama4-scout's tables ({cfg.moe.num_experts} experts of "
+          f"d_ff {cfg.moe.d_ff}, top-{cfg.moe.top_k}, d_model {cfg.d_model}; median of "
+          f"{args.reps} calls, CUDA events, each after an L2 flush)")
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+        p = tmoe.moe_init(gen, cfg, dtype=dtype, device=dev)
+        for name, (B, S) in L4_SHAPES.items():
+            x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(dtype)
+            a, topo, _, _ = sdd_tables(tmoe, p, x, cfg)
+            records[("bsr_sdd", name, str(dtype))] = time_sdd(
+                args, torch, kops, kref, p, a, topo, f"llama4-scout {name}", flush, n_sample=12)
+            records[("bsr_spmm", name, str(dtype))] = time_dsd(
+                args, torch, kops, kref, p, a, topo, f"llama4-scout {name}", flush, n_panels=2)
+            del a, topo, x
+            torch.cuda.empty_cache()
+        del p
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_moe_model(args, torch, kops, m, dev, arch, n_moe):
+    """11b: ``arch`` at full width in float32 (TF32 off), cut to ``n_moe``
+    MoE layers: the prefill logits through the dropless path (K3 twice and
+    K2 once a MoE layer) match the capacity path with capacity_factor = E /
+    top_k (plain einsums, nothing dropped) within SERVE_TOL of max|logits|;
+    CHECK_STEPS greedy decode steps (DeepSeek-V2: the absorbed MLA) give
+    the logits of a (materialized) prefill over the same longer sequence,
+    and the same tokens."""
+    ttr = m["ttr"]
+    cfg = moe_model(arch, n_moe, "float32")
+    mc = cfg.moe
+    cap = replace(cfg, moe=replace(mc, dropless=False,
+                                   capacity_factor=mc.num_experts / mc.top_k))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    params = ttr.init_params(cfg, gen, device=dev)
+    B, P, n = CHECK_B, CHECK_P, CHECK_STEPS
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    with torch.inference_mode():
+        before = dict(kops.launches)
+        lg, cache = ttr.prefill(params, cfg, prompts, ttr.init_cache(cfg, B, P + n, device=dev))
+        torch.cuda.synchronize()
+        k3, k2 = (kops.launches[k] - before[k] for k in ("bsr_sdd", "bsr_spmm"))
+        lc, _ = ttr.prefill(params, cap, prompts, ttr.init_cache(cap, B, P, device=dev))
+        _, rel_cap = rel_err(lg, lc)
+        finite = bool(torch.isfinite(lg).all())
+        del lc
+        seq, worst, same = prompts, 0.0, True
+        for i in range(n):
+            nxt = torch.argmax(lg[:, -1].float(), dim=-1, keepdim=True)
+            seq = torch.cat([seq, nxt], dim=1)
+            lg, cache = ttr.decode_step(params, cfg, nxt, cache, P + i)
+            want, _ = ttr.prefill(params, cfg, seq, ttr.init_cache(cfg, B, P + i + 1,
+                                                                   device=dev))
+            worst = max(worst, rel_err(lg, want)[1])
+            same &= bool(torch.equal(lg[:, -1].argmax(-1), want[:, -1].argmax(-1)))
+    want_k = moe_layers(cfg)
+    ok = (finite and rel_cap <= SERVE_TOL and worst <= SERVE_TOL and same
+          and (k3, k2) == (2 * want_k, want_k))
+    mixer = "absorbed MLA" if arch == DS else "GQA"
+    print(f"  {arch}, {cfg.n_layers}-layer at full width, float32 ({param_counts(cfg, params)})"
+          f", B={B} P={P}: prefill logits dropless vs capacity path rel={rel_cap:.3e}; "
+          f"{n} greedy decode steps ({mixer}) vs a prefill over the longer sequence: rel max "
+          f"{worst:.3e}, tokens equal: {same}; tol {SERVE_TOL:g}; K3/K2 launches of the "
+          f"dropless prefill {k3}/{k2} (expected {2 * want_k}/{want_k}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch}: the float32 full-width check failed")
+    del params, cache, lg, want
+    torch.cuda.empty_cache()
+
+
+def moe_targets(m):
+    """DeepSeek-V2's layers, as (owner, attribute, label) ranges."""
+    from repro_torch.models import moe as tmoe
+
+    ttr = m["ttr"]
+    return [(ttr, "mla_apply", "MLA attention"), (tmoe, "_route", "router and dispatch"),
+            (tmoe, "_dispatch", "router and dispatch"),
+            (tmoe, "_dropless_ffn", "expert FFN glue (topology, activation)"),
+            (tmoe, "_combine", "combine"), (tmoe, "_shared_experts", "shared experts"),
+            (ttr, "ffn_apply", "dense FFN"), (ttr, "_unembed", "head (final norm, lm_head)"),
+            (ttr, "_embed", "embedding")]
+
+
+def is_k3(name: str) -> bool:
+    return "bsr_sdd" in name
+
+
+def is_k2(name: str) -> bool:
+    return "bsr_spmm" in name or "combine_kernel" in name
+
+
+def moe_breakdown(torch, m, label, fn):
+    """One call of ``fn`` under torch.profiler with the MoE model's layers
+    as ranges: device ms by layer, K3's and K2's own time (by kernel name,
+    kept out of the ranges), the rest (norms, residual adds) and the
+    device's busy share of the wall."""
+    got = profile_ranges(torch, moe_targets(m), fn, exclude=lambda k: is_k3(k) or is_k2(k))
+    if got is None:
+        print(f"  profile {label}: device time not measured (the profiler saw none)")
+        return None
+    _, ranges, table, busy, wall_ms = got
+    k3 = sum(row[0] for k, row in table.items() if is_k3(k))
+    k2 = sum(row[0] for k, row in table.items() if is_k2(k))
+    rest = busy - sum(ranges.values()) - k3 - k2
+    parts = "; ".join(f"{k} {v:.3f}" for k, v in ranges.items())
+    top = sorted(((row[0], row[2], k) for k, row in table.items()), reverse=True)[:5]
+    print(f"  profile {label}: device busy {busy:.3f} of {wall_ms:.3f} ms wall (share "
+          f"{busy / wall_ms:.3f}); ms: {parts}; K3 {k3:.3f}; K2 {k2:.3f}; rest (norms, "
+          f"residual adds) {rest:.3f}; top kernels: "
+          + "; ".join(f"{k[:50]} x{n} {own:.3f}" for own, n, k in top))
+    return dict(busy_ms=busy, wall_ms=wall_ms, k3_ms=k3, k2_ms=k2, **ranges)
+
+
+def first_moe_input(ttr, fn):
+    """Run ``fn`` and return (params, input) of its first moe_apply call."""
+    real, got = ttr.moe_apply, []
+
+    def spy(p, x, cfg, **kw):
+        if not got:
+            got.append((p, x))
+        return real(p, x, cfg, **kw)
+
+    ttr.moe_apply = spy
+    try:
+        fn()
+    finally:
+        ttr.moe_apply = real
+    return got[0]
+
+
+def serve_ds(args, torch, kops, kref, m, dev):
+    """11c: DeepSeek-V2 in bfloat16 at its published widths, cut to its
+    dense layer 0 and DS_MOE_LAYERS MoE layers, dropless, through
+    ServeEngine.generate. Returns (engine, K3/K2 records at the served
+    tables, generate's launches, tokens/s)."""
+    from repro_torch.models import moe as tmoe
+
+    ttr = m["ttr"]
+    cfg = moe_model(DS, DS_MOE_LAYERS, "bfloat16")
+    B, P, G = DS_B, DS_P, DS_G
+    n_moe = moe_layers(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    params = ttr.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 11c: serve DeepSeek-V2-236B at its published widths cut to {cfg.n_layers} "
+          f"layers (layer 0 dense, {n_moe} MoE), MLA, dropless, bfloat16; params "
+          f"{param_counts(cfg, params)}, drawn in {time.perf_counter() - t0:.2f} s; B={B} "
+          f"prompts of {P} tokens, {G} greedy new tokens, max_len {P + G}")
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    engine = m["ServeEngine"](cfg, params, max_len=P + G, device=dev)
+    if engine.patterns or engine.warmup_stats["plans_staged"]:
+        raise AssertionError(f"the warmup staged plans: {engine.warmup_stats}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    out, stats = engine.generate(prompts, G)
+    launches = {k: kops.launches[k] for k in ("bsr_sdd", "bsr_spmm")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    new = out[:, P:]
+    want = {"bsr_sdd": 2 * n_moe * G, "bsr_spmm": n_moe * G}  # G forwards
+    print(f"  generate: prefill ms={stats['prefill_s'] * 1e3:.3f} decode ms/step="
+          f"{stats['decode_s'] * 1e3 / (G - 1):.3f} tokens/s={stats['tokens_per_s']:.1f} "
+          f"(B x new tokens / decode s) peak GB={peak:.3f}; K3/K2 launches "
+          f"{launches['bsr_sdd']}/{launches['bsr_spmm']} over {G} forwards (expected "
+          f"{want['bsr_sdd']}/{want['bsr_spmm']}: 2 and 1 a MoE layer a forward)")
+    if tuple(out.shape) != (B, P + G) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate: tokens {tuple(out.shape)} out of range")
+    if launches != want:
+        raise AssertionError(f"generate: launches {launches}, expected {want}")
+
+    records = {}
+    with torch.inference_mode():
+        cache = ttr.init_cache(cfg, B, P + G, device=dev)
+        moe_breakdown(torch, m, f"DeepSeek-V2 prefill B={B} P={P}",
+                      lambda: engine._prefill(prompts, cache))
+        tok = out[:, P:P + 1]
+        moe_breakdown(torch, m, f"DeepSeek-V2 one decode step at position {P}",
+                      lambda: engine._decode(tok, cache, P, 0.0, None))
+        # K3 and K2 at the served model's own tables: the first MoE layer's
+        flush = l2_flush(torch)
+        for name, fn in (("prefill", lambda: engine._prefill(prompts, cache)),
+                         ("decode", lambda: engine._decode(tok, cache, P, 0.0, None))):
+            p, x = first_moe_input(ttr, fn)
+            a, topo, _, _ = sdd_tables(tmoe, p, x, cfg)
+            tag = f"DeepSeek-V2 served {name}"
+            records[("bsr_sdd", name)] = time_sdd(args, torch, kops, kref, p, a, topo, tag,
+                                                  flush)
+            records[("bsr_spmm", name)] = time_dsd(args, torch, kops, kref, p, a, topo, tag,
+                                                   flush)
+            del a, topo, x
+        del cache
+    torch.cuda.empty_cache()
+    return engine, records, launches, stats["tokens_per_s"]
+
+
+def serve_ds_continuous(args, torch, kops, m, dev, engine, generate_tps):
+    """11d: the same model through ServeEngine.serve: DS_REQUESTS requests
+    on DS_LANES lanes, the largest page count whose schedule evicts (found
+    on the CPU, as phase 10 finds it). Returns the run's K3/K2 launches."""
+    import numpy as np
+
+    cfg = engine.cfg
+    n_moe = moe_layers(cfg)
+    rng = np.random.default_rng(args.seed + 14)
+    lengths = rng.integers(DS_PROMPTS[0], DS_PROMPTS[1] + 1, DS_REQUESTS)
+    gens = rng.integers(DS_GENS[0], DS_GENS[1] + 1, DS_REQUESTS)
+    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, int(p)).astype(np.int32),
+                 max_new_tokens=int(g), rid=f"d{i}")
+            for i, (p, g) in enumerate(zip(lengths, gens))]
+    max_len = DS_PROMPTS[1] + DS_GENS[1]
+    kw = dict(max_len=max_len, page_size=DS_PAGE, max_batch=DS_LANES)
+    t0 = time.perf_counter()
+    start = DS_LANES * -(-max_len // DS_PAGE)
+    pages, sims = cb_pages(m, torch, reqs, start, [kw])
+    sim_stats, sim_transcript = sims[0]
+    print(f"phase 11d: the same model through ServeEngine.serve: {DS_REQUESTS} requests, prompts "
+          f"{int(lengths.min())}-{int(lengths.max())} tokens, {int(gens.min())}-"
+          f"{int(gens.max())} greedy new tokens, one arriving a step; {DS_LANES} lanes, "
+          f"page_size {DS_PAGE}, max_len {max_len}; {pages} pages, the largest count from "
+          f"{start} down whose schedule evicts (found on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s: {sim_stats['evictions']} evictions)")
+    sched = engine.make_scheduler(num_pages=pages, **kw)
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    cb_drive(sched, reqs, timed=steps)
+    wall = time.perf_counter() - t0
+    launches = {k: kops.launches[k] for k in ("bsr_sdd", "bsr_spmm")}
+    st = sched.stats
+    forwards = sum(1 for ev, _, _ in steps if ev["running"])
+    prefills = st["admissions"] - st["resumes"]
+    want = {"bsr_sdd": 2 * n_moe * (forwards + prefills), "bsr_spmm": n_moe * (forwards + prefills)}
+    pure = [ms for ev, ms, _ in steps if ev["running"] and not (
+        ev["admitted"] or ev["resumed"] or ev["evicted"])]
+    step_ms = statistics.median(pure)
+    print(f"  served {st['finished']} requests in {wall:.3f} s: {st['finished'] / wall:.3f} "
+          f"requests/s, {st['decode_tokens'] / wall:.1f} decode tokens/s; steps {st['steps']} "
+          f"(decode forwards {forwards}, median pure decode step {step_ms:.3f} ms over "
+          f"{len(pure)}), prefills {prefills}, evictions {st['evictions']}, resumes "
+          f"{st['resumes']}; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; K3/K2 "
+          f"launches {launches['bsr_sdd']}/{launches['bsr_spmm']} (expected "
+          f"{want['bsr_sdd']}/{want['bsr_spmm']}); generate (11c): {generate_tps:.1f} tokens/s")
+    checks = {
+        "all finished": st["finished"] == DS_REQUESTS,
+        "evicted and resumed": st["evictions"] >= 1 and st["resumes"] >= 1,
+        "K3/K2 launches": launches == want,
+        "the CPU schedule": sched.transcript == sim_transcript,
+    }
+    agree, total = 0, 0
+    for r in reqs[:2]:
+        out, _ = engine.generate(r["prompt"][None], r["max_new_tokens"])
+        mine = sched.requests[r["rid"]].tokens
+        agree += sum(a == b for a, b in zip(out[0, len(r["prompt"]):].tolist(), mine))
+        total += len(mine)
+    print(f"  greedy tokens of requests d0-d1 that equal generate's on each alone: {agree} of "
+          f"{total} (reported, not gated: batch composition changes bfloat16 rounding)")
+    failed = [k for k, ok in checks.items() if not ok]
+    print(f"  checks: {', '.join(f'{k} {ok}' for k, ok in checks.items())}")
+    if failed:
+        raise AssertionError(f"DeepSeek-V2 serve: {failed} failed")
+    return launches
+
+
+def serve_l4(args, torch, kops, m, dev):
+    """11e: llama4-scout in bfloat16 at full width, cut to L4_LAYERS layers,
+    through ServeEngine.generate. Returns its K3/K2 launches."""
+    ttr = m["ttr"]
+    cfg = moe_model(L4, L4_LAYERS, "bfloat16")
+    B, P, G = L4_B, L4_P, L4_G
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 22)
+    params = ttr.init_params(cfg, gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    engine = m["ServeEngine"](cfg, params, max_len=P + G, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    out, stats = engine.generate(prompts, G)
+    launches = {k: kops.launches[k] for k in ("bsr_sdd", "bsr_spmm")}
+    n_moe = moe_layers(cfg)
+    want = {"bsr_sdd": 2 * n_moe * G, "bsr_spmm": n_moe * G}
+    new = out[:, P:]
+    ok = (launches == want and tuple(out.shape) == (B, P + G)
+          and bool(((new >= 0) & (new < cfg.vocab_size)).all()))
+    print(f"phase 11e: serve llama4-scout at its published widths cut to {cfg.n_layers} layers, "
+          f"dropless, bfloat16 ({param_counts(cfg, params)}): B={B} prompts of {P} tokens, {G} "
+          f"greedy new tokens: prefill ms={stats['prefill_s'] * 1e3:.3f} decode ms/step="
+          f"{stats['decode_s'] * 1e3 / (G - 1):.3f} tokens/s={stats['tokens_per_s']:.1f} peak "
+          f"GB={torch.cuda.max_memory_allocated() / 1e9:.3f}; K3/K2 launches "
+          f"{launches['bsr_sdd']}/{launches['bsr_spmm']} (expected {want['bsr_sdd']}/"
+          f"{want['bsr_spmm']}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"llama4-scout generate: launches {launches}, tokens "
+                             f"{tuple(out.shape)}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_serve(args, torch, kops, kref, dev):
+    """Phase 11: the MoE models served on the card. Returns, per kernel
+    (bsr_sdd, bsr_spmm), its l4_* and ds_* JSON keys."""
+    t_start = time.perf_counter()
+    m = serve_modules()
+    l4_records = l4_kernels(args, torch, kops, kref, dev)
+    print("phase 11b: the MoE models at full width in float32 (TF32 off), cut in depth")
+    check_moe_model(args, torch, kops, m, dev, DS, 1)
+    check_moe_model(args, torch, kops, m, dev, L4, 1)
+    engine, ds_records, ds_launches, ds_tps = serve_ds(args, torch, kops, kref, m, dev)
+    serve_launches = serve_ds_continuous(args, torch, kops, m, dev, engine, ds_tps)
+    del engine
+    torch.cuda.empty_cache()
+    l4_launches = serve_l4(args, torch, kops, m, dev)
+    print(f"phase 11: {time.perf_counter() - t_start:.1f} s")
+    short = {"torch.bfloat16": "bf16", "torch.float32": "f32"}
+    fields = ("ms", "bound_ms", "fma_bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    keys = {}
+    for kname in ("bsr_sdd", "bsr_spmm"):
+        out = keys[kname] = {}
+        for (k, shape, dt), rec in l4_records.items():
+            if k == kname:
+                for f in fields:
+                    if f in rec:
+                        out[f"l4_{shape}_{short[dt]}_{f}"] = rec[f]
+                out[f"l4_{shape}_{short[dt]}_launches"] = l4_launches[kname]
+        for (k, shape), rec in ds_records.items():
+            if k == kname:
+                for f in fields:
+                    if f in rec:
+                        out[f"ds_{shape}_bf16_{f}"] = rec[f]
+                out[f"ds_{shape}_bf16_launches"] = ds_launches[kname]
+        out["ds_serve_launches"] = serve_launches[kname]
+    return keys
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2046,6 +2510,9 @@ def main() -> int:
 
     # -- phase 10 ----------------------------------------------------------
     cb_keys = phase_continuous(args, torch, kops, dev, serve_tps)
+
+    # -- phase 11 ----------------------------------------------------------
+    moe_serve_keys = phase_moe_serve(args, torch, kops, kref, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -2082,6 +2549,7 @@ def main() -> int:
             extra["tune_winners"] = winners["spmv" if kname == "bsr_spmv" else "spmm"]
         if kname == "bsr_spmm":  # phase 10: launches and step times under continuous batching
             extra.update(cb_keys)
+        extra.update(moe_serve_keys.get(kname, {}))  # phase 11: llama4-scout, DeepSeek-V2
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

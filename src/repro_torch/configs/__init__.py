@@ -34,6 +34,7 @@ _MODULES = {
     "llama3-8b": ("llama3_8b", "full", "reduced"),
     "llama3-8b-sable": ("llama3_8b", "full_sable", "reduced_sable"),
     "deepseek-v2-236b": ("deepseek_v2_236b", "full", "reduced"),
+    "llama4-scout-17b-a16e": ("llama4_scout_17b_a16e", "full", "reduced"),
     "chameleon-34b": ("chameleon_34b", "full", "reduced"),
 }
 

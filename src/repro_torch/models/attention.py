@@ -1,10 +1,14 @@
-"""Attention mixers: GQA with RoPE and optional qk-norm (port of
-``repro.models.attention``; MLA and cross-attention come in later slices).
+"""Attention mixers: GQA with RoPE and optional qk-norm, and MLA
+(DeepSeek-V2's multi-head latent attention) (port of
+``repro.models.attention``; cross-attention comes in a later slice).
 
-Cache layout (per layer): ``{"k": (B, S_max, Kv, Dh), "v": (B, S_max, Kv,
-Dh)}``. The reference writes the new keys and values with
-``dynamic_update_slice`` into a cache its decode step donates; the port
-writes them in place at ``cache_pos`` and returns the same dict.
+Cache layout (per layer): GQA ``{"k": (B, S_max, Kv, Dh), "v": (B, S_max,
+Kv, Dh)}``; MLA ``{"ckv": (B, S_max, kv_lora_rank), "kr": (B, S_max,
+qk_rope_dim)}``, the compressed latent and the rope key shared by every
+head. The reference writes the new entries with ``dynamic_update_slice``
+into a cache its decode step donates; the port writes them in place at
+``cache_pos`` (an int, or a (B,) tensor of per-lane offsets) and returns
+the same dict.
 """
 from __future__ import annotations
 
@@ -85,6 +89,21 @@ def causal_mask(sq: int, sk: int, offset, device=None) -> torch.Tensor:
     return (kpos[None, :] <= qpos)[None, None, None]
 
 
+def _write_cache(cache: dict, new: dict, cache_pos, S: int) -> None:
+    """Write each ``new[name]`` (B, S, ...) into ``cache[name]`` in place at
+    positions [cache_pos, cache_pos + S): one offset for the batch, or one a
+    lane for a (B,) tensor ``cache_pos`` (an indexed write)."""
+    for name, val in new.items():
+        buf = cache[name]
+        if isinstance(cache_pos, torch.Tensor):
+            B = val.shape[0]
+            lanes = torch.arange(B, device=buf.device)[:, None]
+            slots = cache_pos.to(buf.device)[:, None] + torch.arange(S, device=buf.device)
+            buf[lanes, slots] = val.to(buf.dtype)
+        else:
+            buf[:, cache_pos:cache_pos + S] = val
+
+
 # ---------------------------------------------------------------------- #
 # GQA
 # ---------------------------------------------------------------------- #
@@ -136,14 +155,7 @@ def gqa_apply(
 
     per_lane = isinstance(cache_pos, torch.Tensor)
     if cache is not None:
-        if per_lane:
-            lanes = torch.arange(B, device=x.device)[:, None]
-            slots = cache_pos.to(x.device)[:, None] + torch.arange(S, device=x.device)
-            cache["k"][lanes, slots] = k.to(cache["k"].dtype)
-            cache["v"][lanes, slots] = v.to(cache["v"].dtype)
-        else:
-            cache["k"][:, cache_pos:cache_pos + S] = k
-            cache["v"][:, cache_pos:cache_pos + S] = v
+        _write_cache(cache, {"k": k, "v": v}, cache_pos, S)
         k_all, v_all = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
         q_offset = cache_pos
     else:
@@ -162,20 +174,104 @@ def gqa_apply(
 
 
 # ---------------------------------------------------------------------- #
-# MLA and cross-attention: later slices
+# MLA (multi-head latent attention)
 # ---------------------------------------------------------------------- #
-def _mla_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "MLA attention is not ported yet; it comes with the MLA slice (the full "
-        "DeepSeek-V2 model), after the scheduler slice"
-    )
+def mla_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+             device=None) -> dict:
+    """Random params in the reference's layout (``wdq``, ``qln``, ``wuq``,
+    ``wdkv``, ``kvln``, ``wukv``, ``wo``), drawn from ``generator``."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    dev = resolve_device(device)
+
+    def init(shape):
+        return dense_init(generator, shape, dtype=dtype, device=dev)
+
+    return {
+        "wdq": init((d, m.q_lora_rank)),
+        "qln": torch.ones((m.q_lora_rank,), dtype=dtype, device=dev),
+        "wuq": init((m.q_lora_rank, H * qk)),
+        "wdkv": init((d, m.kv_lora_rank + m.qk_rope_dim)),
+        "kvln": torch.ones((m.kv_lora_rank,), dtype=dtype, device=dev),
+        "wukv": init((m.kv_lora_rank, H * (m.qk_nope_dim + m.v_head_dim))),
+        "wo": init((H * m.v_head_dim, d)),
+    }
 
 
+def mla_apply(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    positions: torch.Tensor,  # (S,) or (B,S) global positions of x tokens
+    cache: Optional[dict] = None,
+    cache_pos=None,  # write offset into the cache: an int, or (B,) per lane
+    causal: bool = True,
+    absorb: Optional[bool] = None,
+):
+    """x: (B, S, d) -> (out (B, S, d), cache). ``absorb=None`` picks the
+    absorbed formulation for a single-token decode step (a cache and S ==
+    1) and the materialized one otherwise, as the reference does.
+
+    Materialized: k_nope and v for every cached position from ``wukv``, the
+    rope key broadcast over the heads. Absorbed: ``wuk`` folded into the
+    queries, scores taken in the kv_lora-wide latent space plus the rope
+    term, the probabilities applied to the latents and ``wuv`` after. Scores
+    and softmax in float32 at scale 1/sqrt(qk_nope_dim + qk_rope_dim)."""
+    m = cfg.mla
+    B, S, d = x.shape
+    H = cfg.n_heads
+    C, dn, dr, dv = m.kv_lora_rank, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+    if absorb is None:
+        absorb = cache is not None and S == 1
+
+    cq = rmsnorm(x @ p["wdq"].to(x.dtype), p["qln"], cfg.norm_eps)
+    q = (cq @ p["wuq"].to(x.dtype)).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+
+    ckv_full = x @ p["wdkv"].to(x.dtype)  # (B, S, C + dr)
+    ckv = rmsnorm(ckv_full[..., :C], p["kvln"], cfg.norm_eps)
+    k_rope = rope(ckv_full[..., None, C:], positions, cfg.rope_theta)[:, :, 0]  # (B, S, dr)
+
+    if cache is not None:
+        _write_cache(cache, {"ckv": ckv, "kr": k_rope}, cache_pos, S)
+        ckv_all, kr_all = cache["ckv"].to(x.dtype), cache["kr"].to(x.dtype)
+        mask = causal_mask(S, ckv_all.shape[1], cache_pos, x.device)
+    else:
+        ckv_all, kr_all = ckv, k_rope
+        mask = causal_mask(S, S, 0, x.device) if causal else None
+    sk = ckv_all.shape[1]
+
+    wukv = p["wukv"].to(x.dtype).reshape(C, H, dn + dv)
+    wuk, wuv = wukv[..., :dn], wukv[..., dn:]  # (C, H, dn), (C, H, dv)
+    scale = 1.0 / math.sqrt(dn + dr)
+    if absorb:
+        q_c = torch.einsum("bqhd,chd->bqhc", q_nope, wuk)  # (B, S, H, C)
+        scores = (torch.einsum("bqhc,bsc->bhqs", q_c, ckv_all)
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope, kr_all)).float() * scale
+    else:
+        kv = torch.einsum("bsc,chd->bshd", ckv_all, wukv)  # materialized k_nope | v
+        k = torch.cat([kv[..., :dn], kr_all[:, :, None].expand(B, sk, H, dr)], dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        scores = torch.einsum("bqhd,bshd->bhqs", qf, k).float() * scale
+    if mask is not None:
+        scores = torch.where(mask[:, 0], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    if absorb:
+        o_c = torch.einsum("bhqs,bsc->bqhc", probs, ckv_all)  # compressed values
+        out = torch.einsum("bqhc,chd->bqhd", o_c, wuv)
+    else:
+        out = torch.einsum("bhqs,bshd->bqhd", probs, kv[..., dn:])
+    return out.reshape(B, S, H * dv) @ p["wo"].to(x.dtype), cache
+
+
+# ---------------------------------------------------------------------- #
+# cross-attention: the encoder-decoder slice
+# ---------------------------------------------------------------------- #
 def _cross_not_ported(*_args, **_kwargs):
     raise NotImplementedError(
         "cross-attention is not ported yet; it comes with the encoder-decoder slice"
     )
 
 
-mla_init = mla_apply = _mla_not_ported
 cross_init = cross_apply = _cross_not_ported

@@ -90,17 +90,19 @@ class _Routing(NamedTuple):
     dropped: torch.Tensor  # (G, Tg, k) bool
 
 
-def _route(p: dict, x: torch.Tensor, cfg: ModelConfig) -> _Routing:
+def _route(p: dict, x: torch.Tensor, cfg: ModelConfig, per_lane: bool = False) -> _Routing:
     """Router, top-k and the cumsum slots of ``moe_apply``.
 
     Groups are batch rows (the reference's data-sharded buckets); a
     single-token decode (S == 1) keeps one global group, since per-group
-    capacity would pad E*C far beyond the token count there.
+    capacity would pad E*C far beyond the token count there, unless
+    ``per_lane`` asks for a group a row on the capacity path (see
+    ``moe_apply``).
     """
     mc = cfg.moe
     B, S, d = x.shape
     E, k = mc.num_experts, mc.top_k
-    G, Tg = (B, S) if S > 1 else (1, B * S)
+    G, Tg = (B, S) if S > 1 or (per_lane and not mc.dropless) else (1, B * S)
     C = _capacity(Tg, cfg)
     xg = x.reshape(G, Tg, d)
     logits = (xg @ p["router"].to(xg.dtype)).float()
@@ -187,34 +189,49 @@ def _capacity_ffn(p: dict, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.einsum("gecf,efd->gecd", h, p["w2"].to(buf.dtype))
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, d) -> (y (B, S, d), aux_loss 0-d float32)."""
+def _combine(out_buf: torch.Tensor, r: _Routing, dtype: torch.dtype) -> torch.Tensor:
+    """Gather each assignment's expert output (dropped ones give zero) and
+    sum them under the gates: (G*Tg, d)."""
+    G, E, C, d = out_buf.shape
+    flat = out_buf.reshape(G * E * C, d)
+    gathered = flat[r.lin.clamp(max=G * E * C - 1)]  # (G, Tg, k, d)
+    gathered = torch.where(r.dropped[..., None], 0, gathered)
+    return (gathered * r.gate[..., None].to(dtype)).sum(dim=2).reshape(G * r.Tg, d)
+
+
+def _shared_experts(p: dict, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The shared experts, a dense FFN branch over every token: (T, d)."""
+    h = xt @ p["sw1"].to(xt.dtype)
+    if cfg.ffn_type == "swiglu":
+        h = F.silu(h) * (xt @ p["sw3"].to(xt.dtype))
+    else:
+        h = _act(cfg, h)
+    return h @ p["sw2"].to(xt.dtype)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, per_lane: bool = False):
+    """x: (B, S, d) -> (y (B, S, d), aux_loss 0-d float32).
+
+    ``per_lane``: the rows are independent sequences decoded together (the
+    scheduler's batched lane step), where the reference runs each alone (a
+    ``vmap`` of the single-sequence step) and so routes each as one group of
+    its own. On the capacity path each row then gets its own buckets, so
+    more than C tokens on one expert drop nothing that the reference keeps;
+    the dropless path drops nothing either way and keeps one group, whose
+    buffer is the smaller."""
     mc = cfg.moe
     B, S, d = x.shape
     E, k = mc.num_experts, mc.top_k
-    r = _route(p, x, cfg)
+    r = _route(p, x, cfg, per_lane)
     buf = _dispatch(x, r, cfg)
     if mc.dropless:
         out_buf = _dropless_ffn(p, buf, r.counts, r.Tg, cfg)
     else:
         out_buf = _capacity_ffn(p, buf, cfg)
     del buf
-
-    # combine: gather each assignment's expert output; dropped ones give zero
-    flat = out_buf.reshape(r.G * E * r.C, d)
-    gathered = flat[r.lin.clamp(max=r.G * E * r.C - 1)]  # (G, Tg, k, d)
-    gathered = torch.where(r.dropped[..., None], 0, gathered)
-    y = (gathered * r.gate[..., None].to(x.dtype)).sum(dim=2).reshape(B * S, d)
-    xt = x.reshape(B * S, d)
-
-    # shared experts (dense branch)
+    y = _combine(out_buf, r, x.dtype)
     if mc.num_shared:
-        h = xt @ p["sw1"].to(xt.dtype)
-        if cfg.ffn_type == "swiglu":
-            h = F.silu(h) * (xt @ p["sw3"].to(xt.dtype))
-        else:
-            h = _act(cfg, h)
-        y = y + h @ p["sw2"].to(xt.dtype)
+        y = y + _shared_experts(p, x.reshape(B * S, d), cfg)
 
     # Switch-style load-balance aux loss
     me = r.probs.reshape(-1, E).mean(dim=0)  # mean router prob per expert

@@ -15,9 +15,9 @@ reference's ``init_params`` tree leaf for leaf. Where the reference scans
 over that axis, the port loops over the layers with views of it, and writes
 each layer's keys and values into the stacked cache in place.
 
-Ported: the GQA mixer, the dense FFN (dense or SABLE block-sparse) and the
-MoE FFN. Mamba, MLA, cross-attention, ``encode`` and ``forward_train`` raise
-``NotImplementedError`` until their slices.
+Ported: the GQA and MLA mixers, the dense FFN (dense or SABLE
+block-sparse) and the MoE FFN. Mamba, cross-attention, ``encode`` and
+``forward_train`` raise ``NotImplementedError`` until their slices.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from .attention import gqa_apply, gqa_init
+from .attention import gqa_apply, gqa_init, mla_apply, mla_init
 from .config import GroupSpec, LayerSpec, ModelConfig
 from .layers import dense_init, ffn_apply, ffn_init, rmsnorm
 from .moe import moe_apply, moe_init
@@ -63,11 +63,6 @@ def _check_ported(cfg: ModelConfig) -> None:
                     f"{cfg.name}: Mamba layers are not ported yet; they come with the "
                     "Mamba slice"
                 )
-            if s.mixer == "mla":
-                raise NotImplementedError(
-                    f"{cfg.name}: MLA layers are not ported yet; they come with the MLA "
-                    "slice (the full DeepSeek-V2 model)"
-                )
             if s.cross_attn:
                 raise NotImplementedError(
                     f"{cfg.name}: cross-attention is not ported yet; it comes with the "
@@ -80,8 +75,9 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------- #
 def _sublayer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, dev):
     p = {}
-    if spec.mixer == "gqa":
-        p["mixer"] = gqa_init(gen, cfg, dtype, device=dev)
+    if spec.mixer in ("gqa", "mla"):
+        init = gqa_init if spec.mixer == "gqa" else mla_init
+        p["mixer"] = init(gen, cfg, dtype, device=dev)
         p["ln_mixer"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     if spec.ffn == "dense":
         p["ffn"] = ffn_init(gen, cfg, dtype=dtype, device=dev)
@@ -92,21 +88,35 @@ def _sublayer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, dev):
     return p
 
 
-def _stack(trees: list):
-    """Stack a list of equal dict trees leaf by leaf along a new axis 0."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _empty_like_stacked(tree, n: int):
+    """Uninitialized (n, ...) stacks shaped like the leaves of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _empty_like_stacked(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _copy_layer(stacked, tree, i: int) -> None:
+    """Copy each leaf of ``tree`` into row ``i`` of its stack."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _copy_layer(stacked[k], v, i)
+    else:
+        stacked[i].copy_(tree)
 
 
 def _group_init(gen, cfg, g: GroupSpec, dtype, dev):
-    """One group's params, each leaf stacked (repeat, ...). Layer by layer,
-    then stacked: the draws are torch's own, not the reference's."""
-    blocks = []
-    for _ in range(g.repeat):
-        blocks.append({f"sub{i}": _sublayer_init(gen, cfg, s, dtype, dev)
-                       for i, s in enumerate(g.layers)})
-    return _stack(blocks)
+    """One group's params, each leaf stacked (repeat, ...). Layer by layer
+    into preallocated stacks (torch's own draws, not the reference's), so
+    that no more than one layer is ever held twice."""
+    stacked = None
+    for i in range(g.repeat):
+        block = {f"sub{j}": _sublayer_init(gen, cfg, s, dtype, dev)
+                 for j, s in enumerate(g.layers)}
+        if stacked is None:
+            stacked = _empty_like_stacked(block, g.repeat)
+        _copy_layer(stacked, block, i)
+        del block  # before the next layer's draws
+    return stacked
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
@@ -146,9 +156,10 @@ def _block_apply(
     for i, spec in enumerate(specs):
         p = p_slice[f"sub{i}"]
         c = cache_slice.get(f"sub{i}") if cache_slice is not None else None
-        if spec.mixer == "gqa":
+        if spec.mixer in ("gqa", "mla"):
             h = rmsnorm(x, p["ln_mixer"], eps)
-            o, _ = gqa_apply(
+            fn = gqa_apply if spec.mixer == "gqa" else mla_apply
+            o, _ = fn(
                 p["mixer"], h, cfg, positions,
                 cache=c["attn"] if c else None, cache_pos=cache_pos, causal=causal,
             )
@@ -156,7 +167,10 @@ def _block_apply(
         if spec.ffn == "dense":
             x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln_ffn"], eps), cfg)
         elif spec.ffn == "moe":
-            y, a = moe_apply(p["moe"], rmsnorm(x, p["ln_ffn"], eps), cfg)
+            # per-lane positions: each lane routes as its own group, as the
+            # reference's lane step (a vmap of the single-sequence step) does
+            y, a = moe_apply(p["moe"], rmsnorm(x, p["ln_ffn"], eps), cfg,
+                             per_lane=isinstance(cache_pos, torch.Tensor))
             x = x + y
             aux = aux + a
     return x, aux
@@ -195,6 +209,12 @@ def _sub_cache(cfg: ModelConfig, spec: LayerSpec, shape_prefix, s_max, dtype, de
         kv = shape_prefix + (s_max, cfg.n_kv_heads, cfg.head_dim)
         return {"attn": {"k": torch.zeros(kv, dtype=dtype, device=dev),
                          "v": torch.zeros(kv, dtype=dtype, device=dev)}}
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return {"attn": {
+            "ckv": torch.zeros(shape_prefix + (s_max, m.kv_lora_rank), dtype=dtype, device=dev),
+            "kr": torch.zeros(shape_prefix + (s_max, m.qk_rope_dim), dtype=dtype, device=dev),
+        }}
     return {}
 
 

@@ -94,7 +94,8 @@ def _gqa_cfg():
 # configs
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("arch", ["nemotron-4-15b", "llama3.2-3b", "granite-8b", "llama3-8b",
-                                  "deepseek-v2-236b", "chameleon-34b"])
+                                  "deepseek-v2-236b", "llama4-scout-17b-a16e",
+                                  "chameleon-34b"])
 def test_configs_equal_jax(jx, arch):
     from repro.models.config import param_count as jcount
 
@@ -123,8 +124,7 @@ def test_sable_configs_and_patterns_equal_jax(jx):
     for k in ("in", "out"):
         assert dataclasses.asdict(pats[k]) == dataclasses.asdict(jpats[k])
     assert tconfigs.ARCH_IDS == jx.configs.ARCH_IDS
-    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "llama4-scout-17b-a16e",
-                 "seamless-m4t-large-v2"):
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match=arch):
             tconfigs.get_config(arch)
     with pytest.raises(KeyError):
@@ -292,13 +292,9 @@ def _shapes(tree):
 
 
 def test_left_out_parts_raise():
-    """MLA, Mamba, cross-attention, encoders and training are later slices."""
+    """Mamba, cross-attention, encoders and training are later slices."""
     ds = tconfigs.get_config("deepseek-v2-236b", reduced=True)
     gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="MLA"):
-        ttr.init_params(ds, gen, device=CPU)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tattn.mla_apply({}, None, ds, None)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         tattn.cross_init(gen, ds)
     mamba = dataclasses.replace(

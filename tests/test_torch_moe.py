@@ -175,6 +175,32 @@ def test_dropless_empty_experts_match_jax_and_capacity_path(jx):
     np.testing.assert_allclose(got[0], y_cap.numpy(), **TOL)
 
 
+def test_per_lane_decode_routes_each_lane_as_its_own_group(jx):
+    """Sixteen lanes decoded together (the scheduler's lane step) with every
+    token routed to experts 0 and 1 (positive inputs, router column e
+    scaled by E - e): ``per_lane=True`` gives each lane the reference's
+    single-lane result, where one group of 16 (C = 8) drops 8 assignments
+    on each of the two; the dropless path keeps one group and drops
+    nothing."""
+    jcfg, tcfg, _ = _configs(jx, "reduced-capacity-decode")
+    p = _params(tcfg, seed=9)
+    E = p["router"].shape[1]
+    p["router"][:] = (E - np.arange(E, dtype=np.float32)) * 0.5
+    x = np.abs(np.random.default_rng(9).standard_normal((16, 1, tcfg.d_model))).astype(
+        np.float32)
+    want = np.concatenate([jx.apply(jcfg, p, x[i:i + 1])[0] for i in range(16)])
+    tp, tx = params_from_arrays(p, device=CPU), torch.as_tensor(x)
+    y, _ = tmoe.moe_apply(tp, tx, tcfg, per_lane=True)
+    np.testing.assert_allclose(y.numpy(), want, **TOL)
+    assert int(tmoe._route(tp, tx, tcfg).dropped.sum()) == 16
+    assert tmoe._route(tp, tx, tcfg, per_lane=True).G == 16
+    assert not np.allclose(tmoe.moe_apply(tp, tx, tcfg)[0].numpy(), want, **TOL)
+    dl = _reduced(tcfg, True)
+    assert tmoe._route(tp, tx, dl, per_lane=True).G == 1
+    np.testing.assert_allclose(tmoe.moe_apply(tp, tx, dl, per_lane=True)[0].numpy(), want,
+                               **TOL)
+
+
 def test_params_carry_jax_moe_init_layout(jx):
     """The reference's moe_init pytree (its shapes, traced without running)
     has the port's keys and shapes; the converter keeps them and follows

@@ -568,6 +568,21 @@ def test_cli_continuous_on_cpu(plan_dir, capsys):
     assert "served 3 requests on cpu" in text and "prefix sharing:" in text
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "llama4-scout-17b-a16e"])
+def test_cli_continuous_serves_moe_models_on_cpu(plan_dir, capsys, arch):
+    """``--continuous`` on the MoE configs (MLA's latent cache paged for
+    DeepSeek-V2), with prefix sharing and chunked prefill."""
+    results, sched = tlaunch.main([
+        "--arch", arch, "--reduced", "--device", "cpu", "--continuous",
+        "--requests", "3", "--max-batch", "2", "--page-size", "4", "--prompt-len", "6",
+        "--gen", "4", "--shared-prefix", "8", "--prefix-sharing", "--chunked-prefill",
+    ])
+    assert sched.stats["finished"] == 3 and sched.device.type == "cpu"
+    assert all(r["state"] == "FINISHED" for r in results.values())
+    assert sched.stats["prefix_hits"] >= 1 and all(sched.kv.paged)
+    assert "served 3 requests on cpu" in capsys.readouterr().out
+
+
 # ---------------------------------------------------------------------- #
 # on the card: the lane step through K2
 # ---------------------------------------------------------------------- #

@@ -137,6 +137,19 @@ def test_cli_generates_on_cpu(plan_dir, capsys, monkeypatch):
     assert "generated (2, 9) on cpu" in text and "staged 2 sparse plans" in text
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "llama4-scout-17b-a16e"])
+def test_cli_generates_moe_models_on_cpu(plan_dir, capsys, arch):
+    """The MoE configs (MLA for DeepSeek-V2) serve through the CLI on the
+    CPU: no SABLE pattern, so the warmup stages nothing, and the params are
+    stored in the compute dtype."""
+    out, stats = tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+                               "--prompt-len", "5", "--gen", "3"])
+    assert tuple(out.shape) == (2, 8) and out.device.type == "cpu"
+    assert int(out.min()) >= 0 and int(out.max()) < tconfigs.get_config(arch, True).vocab_size
+    text = capsys.readouterr().out
+    assert "generated (2, 8) on cpu" in text and "staged" not in text
+
+
 def test_cli_and_engine_refuse_what_is_left_out(plan_dir, monkeypatch):
     """Without --device the CLI wants the card and raises without one, with
     --continuous too; sharding (the engine's and the scheduler's mesh=) and
