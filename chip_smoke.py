@@ -179,6 +179,39 @@ Phases, each printing its lines:
             alone (not gated); (e) llama4-scout at full width cut to 2
             layers (12.9 GB of bfloat16 params) through generate, 4 prompts
             of 256 tokens, 8 new tokens, K3 and K2 launching as in (c).
+12. mamba serve  drives the port's serving path on the Mamba-2 models: (a)
+            K3 and K2 at jamba-1.5-large's tables (16 experts of d_ff
+            24576, top-2, d_model 8192: bn = tk = 24576, K = 8192, the
+            stacked experts 3.2 G values, past 2^31) at prefill (B=4,
+            S=512) and decode (B=4), both dtypes, as in 11a (sampled slots
+            and one whole panel for the plain versions); (b) in float32
+            (TF32 off) mamba2-1.3b whole (48 layers) and jamba's layers 0-1
+            (Mamba + dense FFN, Mamba + MoE): a 512-token prefill (4 SSD
+            chunks), then 8 greedy recurrent decode steps, each step's
+            logits against a chunked prefill over the longer sequence
+            within 1e-4 of max|logits| and the same tokens; jamba's dropless
+            prefill against its capacity path at capacity_factor 16; (c)
+            mamba2-1.3b whole in bfloat16 (2.69 GB, from --seed) through
+            ServeEngine.generate (8 prompts of 512 tokens, 64 greedy new
+            tokens) and ServeEngine.serve (16 requests of 128-512 prompt
+            and 16-64 new tokens, one a step, 8 lanes, page_size 16, the
+            largest page count whose schedule evicts, found on the CPU and
+            repeated on the card; every cache leaf per-sequence state,
+            checked bit for bit at each resume): prefill ms, decode ms a
+            step, tokens/s, requests/s, peak memory, torch.profiler
+            breakdowns of the prefill, one decode step and one serve step
+            of 8 lanes (in and out projections, conv, SSD, gated norm,
+            head, the state gather and scatter), the state gather alone
+            beside its bytes bound; the serve CLI on the card; (d) jamba at
+            its published widths cut to a super-block's layers 0, 1 and 7
+            (Mamba + dense FFN, Mamba + MoE, attention + MoE; 44 GB of
+            bfloat16 params), dropless, through generate (4 prompts of 512
+            tokens, 32 new) and serve (8 requests on 4 lanes, paged KV and
+            state leaves in one cache, an eviction and resume), K3 and K2
+            launching exactly 2 and 1 times a MoE layer a forward or
+            prefill, the same metrics and a breakdown by layer kind
+            (Mamba, attention, router and dispatch, K3, K2, dense FFN,
+            head); the reduced jamba through the serve CLI.
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -197,7 +230,9 @@ the gather alone beside its bound, and the profiled step's device busy ms;
 l4_{prefill,decode}_{bf16,f32}_* keys for K2 and K3 at llama4-scout's
 tables, launches from phase 11's llama4-scout generate; ds_{prefill,decode}
 _bf16_* at the served DeepSeek-V2's tables, launches from its generate, and
-ds_serve_launches from its serve) and {"ok": true, "device": {...}}.
+ds_serve_launches from its serve; jb_{prefill,decode}_{bf16,f32}_* for K2
+and K3 at jamba's tables, launches from phase 12's jamba generate, and
+jb_serve_launches from its serve) and {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -2008,16 +2043,18 @@ def moe_layers(cfg) -> int:
 
 
 def param_counts(cfg, params) -> str:
-    """The params by part: one MoE layer, the dense layers, embed and head."""
+    """The params by part: a layer of each kind (MoE, Mamba, dense; a group
+    of several kinds by sub-layer), embed and head."""
     from repro_torch.serve.engine import _leaves
 
     total = sum(v.numel() for _, v in _leaves(params))
-    parts = {"total": total,
-             "embed and head": params["embed"].numel() + params["lm_head"].numel()}
+    parts = {"total": total, "embed and head": params["embed"].numel()
+             + (params["lm_head"].numel() if "lm_head" in params else 0)}
     for g, gp in zip(cfg.groups, params["groups"]):
-        n = sum(v.numel() for _, v in _leaves(gp)) // g.repeat
-        kind = "a MoE layer" if any(s.ffn == "moe" for s in g.layers) else "a dense layer"
-        parts[kind] = n
+        for j, s in enumerate(g.layers):
+            n = sum(v.numel() for _, v in _leaves(gp[f"sub{j}"])) // g.repeat
+            kind = f"a {s.mixer} + {s.ffn} layer"
+            parts[kind] = n
     es = params["embed"].element_size()
     return (", ".join(f"{k} {v / 1e9:.4f} G" for k, v in parts.items())
             + f"; {total * es / 1e9:.3f} GB")
@@ -2056,30 +2093,39 @@ def l4_kernels(args, torch, kops, kref, dev):
 
 def check_moe_model(args, torch, kops, m, dev, arch, n_moe):
     """11b: ``arch`` at full width in float32 (TF32 off), cut to ``n_moe``
-    MoE layers: the prefill logits through the dropless path (K3 twice and
-    K2 once a MoE layer) match the capacity path with capacity_factor = E /
-    top_k (plain einsums, nothing dropped) within SERVE_TOL of max|logits|;
-    CHECK_STEPS greedy decode steps (DeepSeek-V2: the absorbed MLA) give
-    the logits of a (materialized) prefill over the same longer sequence,
+    MoE layers (see ``check_model``)."""
+    mixer = "absorbed MLA" if arch == DS else "GQA"
+    check_model(args, torch, kops, m, dev, moe_model(arch, n_moe, "float32"), arch, mixer,
+                CHECK_B, CHECK_P, CHECK_STEPS, seed=args.seed + 21)
+
+
+def check_model(args, torch, kops, m, dev, cfg, label, mixer, B, P, n, seed, cf=None):
+    """A float32 model at full width (TF32 off): with MoE layers, the prefill
+    logits through the dropless path (K3 twice and K2 once a MoE layer) match
+    the capacity path with capacity_factor ``cf`` (default E / top_k; either
+    drops nothing) within SERVE_TOL of max|logits|; ``n`` greedy decode steps
+    (``mixer``) give the logits of a prefill over the same longer sequence,
     and the same tokens."""
     ttr = m["ttr"]
-    cfg = moe_model(arch, n_moe, "float32")
     mc = cfg.moe
-    cap = replace(cfg, moe=replace(mc, dropless=False,
-                                   capacity_factor=mc.num_experts / mc.top_k))
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     params = ttr.init_params(cfg, gen, device=dev)
-    B, P, n = CHECK_B, CHECK_P, CHECK_STEPS
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    want_k = moe_layers(cfg)
     with torch.inference_mode():
         before = dict(kops.launches)
         lg, cache = ttr.prefill(params, cfg, prompts, ttr.init_cache(cfg, B, P + n, device=dev))
         torch.cuda.synchronize()
         k3, k2 = (kops.launches[k] - before[k] for k in ("bsr_sdd", "bsr_spmm"))
-        lc, _ = ttr.prefill(params, cap, prompts, ttr.init_cache(cap, B, P, device=dev))
-        _, rel_cap = rel_err(lg, lc)
+        rel_cap, cap_text = 0.0, ""
+        if want_k:
+            cf = mc.num_experts / mc.top_k if cf is None else cf
+            cap = replace(cfg, moe=replace(mc, dropless=False, capacity_factor=cf))
+            lc, _ = ttr.prefill(params, cap, prompts, ttr.init_cache(cap, B, P, device=dev))
+            _, rel_cap = rel_err(lg, lc)
+            cap_text = f"prefill logits dropless vs capacity path (cf {cf:g}) rel={rel_cap:.3e}; "
+            del lc
         finite = bool(torch.isfinite(lg).all())
-        del lc
         seq, worst, same = prompts, 0.0, True
         for i in range(n):
             nxt = torch.argmax(lg[:, -1].float(), dim=-1, keepdim=True)
@@ -2089,17 +2135,15 @@ def check_moe_model(args, torch, kops, m, dev, arch, n_moe):
                                                                    device=dev))
             worst = max(worst, rel_err(lg, want)[1])
             same &= bool(torch.equal(lg[:, -1].argmax(-1), want[:, -1].argmax(-1)))
-    want_k = moe_layers(cfg)
     ok = (finite and rel_cap <= SERVE_TOL and worst <= SERVE_TOL and same
           and (k3, k2) == (2 * want_k, want_k))
-    mixer = "absorbed MLA" if arch == DS else "GQA"
-    print(f"  {arch}, {cfg.n_layers}-layer at full width, float32 ({param_counts(cfg, params)})"
-          f", B={B} P={P}: prefill logits dropless vs capacity path rel={rel_cap:.3e}; "
-          f"{n} greedy decode steps ({mixer}) vs a prefill over the longer sequence: rel max "
-          f"{worst:.3e}, tokens equal: {same}; tol {SERVE_TOL:g}; K3/K2 launches of the "
-          f"dropless prefill {k3}/{k2} (expected {2 * want_k}/{want_k}) {'ok' if ok else 'FAIL'}")
+    print(f"  {label}, {cfg.n_layers}-layer at full width, float32 ({param_counts(cfg, params)})"
+          f", B={B} P={P}: {cap_text}{n} greedy decode steps ({mixer}) vs a prefill over the "
+          f"longer sequence: rel max {worst:.3e}, tokens equal: {same}; tol {SERVE_TOL:g}; K3/K2 "
+          f"launches of the dropless prefill {k3}/{k2} (expected {2 * want_k}/{want_k}) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{arch}: the float32 full-width check failed")
+        raise AssertionError(f"{label}: the float32 full-width check failed")
     del params, cache, lg, want
     torch.cuda.empty_cache()
 
@@ -2371,6 +2415,346 @@ def phase_moe_serve(args, torch, kops, kref, dev):
     return keys
 
 
+# ---------------------------------------------------------------------- #
+# phase 12: serving the Mamba-2 models (mamba2-1.3b whole, jamba cut)
+# ---------------------------------------------------------------------- #
+M2, JB = "mamba2-1.3b", "jamba-1.5-large-398b"
+# the served jamba: a super-block's layers 0 (Mamba, dense FFN), 1 (Mamba,
+# MoE) and 7 (attention, MoE), in that order, one group of one repeat
+JB_KEEP, JB_CHECK_KEEP = (0, 1, 7), (0, 1)
+JB_SHAPES = {"prefill": (4, 512), "decode": (4, 1)}  # K3 and K2 at jamba's tables
+SSM_CHECK_B, SSM_CHECK_P, SSM_CHECK_STEPS = 2, 512, 8  # float32: 4 SSD chunks, 8 steps
+M2_B, M2_P, M2_G = 8, 512, 64  # mamba2's generate
+M2_REQUESTS, M2_LANES, M2_PROMPTS, M2_GENS = 16, 8, (128, 512), (16, 64)  # its serve
+JB_B, JB_P, JB_G = 4, 512, 32  # jamba's generate
+JB_REQUESTS, JB_LANES, JB_PROMPTS, JB_GENS = 8, 4, (128, 512), (16, 32)  # its serve
+SSM_PAGE = 16
+
+
+def jamba_model(keep, dtype):
+    """jamba at its published widths, dropless, params and compute in
+    ``dtype``, cut to the super-block's layers ``keep`` (one group, repeat
+    1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import GroupSpec
+
+    cfg = get_config(JB)
+    layers = tuple(cfg.groups[0].layers[i] for i in keep)
+    return replace(cfg, groups=(GroupSpec(repeat=1, layers=layers),), param_dtype=dtype,
+                   compute_dtype=dtype, moe=replace(cfg.moe, dropless=True))
+
+
+def mamba2_model(dtype):
+    """mamba2-1.3b whole (48 layers at the published widths), params and
+    compute in ``dtype``."""
+    from repro_torch.configs import get_config
+
+    return replace(get_config(M2), param_dtype=dtype, compute_dtype=dtype)
+
+
+def jb_kernels(args, torch, kops, kref, dev):
+    """12a: K3 and K2 at jamba's dropless tables (16 experts of d_ff 24576,
+    top-2, d_model 8192: bn = tk = 24576, K = 8192; the stacked experts hold
+    3.2 G values, past 2^31) at prefill (B=4, S=512) and decode (B=4), in
+    both dtypes: each held against its plain version on sampled slots and a
+    whole panel (a plain gather of every slot would not fit) and timed after
+    an L2 flush beside its bound, the plain version and the library call; in
+    float32 a second launch gives the same bits."""
+    from repro_torch.models import moe as tmoe
+
+    cfg = jamba_model(JB_KEEP, "float32")
+    mc = cfg.moe
+    flush = l2_flush(torch)
+    records = {}
+    print(f"phase 12a: K3 and K2 at jamba's tables ({mc.num_experts} experts of d_ff "
+          f"{mc.d_ff}, top-{mc.top_k}, d_model {cfg.d_model}: each expert's w1 chunk "
+          f"{cfg.d_model * mc.d_ff * 2 / 1e6:.1f} MB in bfloat16; median of {args.reps} calls, "
+          f"CUDA events, each after an L2 flush)")
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 30)
+        p = tmoe.moe_init(gen, cfg, dtype=dtype, device=dev)
+        for name, (B, S) in JB_SHAPES.items():
+            x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(dtype)
+            a, topo, _, _ = sdd_tables(tmoe, p, x, cfg)
+            records[("bsr_sdd", name, str(dtype))] = time_sdd(
+                args, torch, kops, kref, p, a, topo, f"jamba {name}", flush, n_sample=4)
+            records[("bsr_spmm", name, str(dtype))] = time_dsd(
+                args, torch, kops, kref, p, a, topo, f"jamba {name}", flush, n_panels=1)
+            del a, topo, x
+            torch.cuda.empty_cache()
+        del p
+        torch.cuda.empty_cache()
+    return records
+
+
+def ssm_targets(m):
+    """The Mamba-2 models' layers, as (owner, attribute, label) ranges: the
+    mixer's parts for mamba2, the layer kinds for jamba (``by_kind``)."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import ssm as tssm
+
+    ttr = m["ttr"]
+    head = [(ttr, "_unembed", "head (final norm, lm_head)"), (ttr, "_embed", "embedding")]
+    return {
+        "parts": [(tssm, "_in_proj", "in projections"), (tssm, "_out_proj", "out projection"),
+                  (tssm, "_causal_conv", "conv"), (tssm, "_conv_step", "conv"),
+                  (tssm, "ssd_chunked", "SSD"), (tssm, "_ssd_step", "SSD"),
+                  (tssm, "rmsnorm", "gated norm")] + head,
+        "kinds": [(ttr, "mamba_apply", "Mamba"), (ttr, "mamba_decode", "Mamba"),
+                  (ttr, "gqa_apply", "attention"), (tmoe, "_route", "router and dispatch"),
+                  (tmoe, "_dispatch", "router and dispatch"),
+                  (tmoe, "_dropless_ffn", "expert FFN glue (topology, activation)"),
+                  (tmoe, "_combine", "combine"), (ttr, "ffn_apply", "dense FFN")] + head,
+    }
+
+
+def ssm_breakdown(torch, m, label, fn, kind, extra=()):
+    """One call of ``fn`` under torch.profiler with ranges ``ssm_targets(m)
+    [kind]`` (and ``extra`` beside them): device ms by range, K3's and K2's
+    own time (by kernel name, kept out of the ranges), the rest (layer norms,
+    residual adds) and the device's busy share of the wall."""
+    got = profile_ranges(torch, ssm_targets(m)[kind] + list(extra), fn,
+                         exclude=lambda k: is_k3(k) or is_k2(k))
+    if got is None:
+        print(f"  profile {label}: device time not measured (the profiler saw none)")
+        return None
+    _, ranges, table, busy, wall_ms = got
+    k3 = sum(row[0] for k, row in table.items() if is_k3(k))
+    k2 = sum(row[0] for k, row in table.items() if is_k2(k))
+    rest = busy - sum(ranges.values()) - k3 - k2
+    parts = "; ".join(f"{k} {v:.3f}" for k, v in ranges.items())
+    kernels = f"K3 {k3:.3f}; K2 {k2:.3f}; " if k3 or k2 else ""
+    top = sorted(((row[0], row[2], k) for k, row in table.items()), reverse=True)[:5]
+    print(f"  profile {label}: device busy {busy:.3f} of {wall_ms:.3f} ms wall (share "
+          f"{busy / wall_ms:.3f}); ms: {parts}; {kernels}rest (layer norms, residual adds) "
+          f"{rest:.3f}; top kernels: "
+          + "; ".join(f"{k[:50]} x{n} {own:.3f}" for own, n, k in top))
+    return dict(busy_ms=busy, wall_ms=wall_ms, k3_ms=k3, k2_ms=k2, **ranges)
+
+
+def ssm_generate(args, torch, kops, m, dev, cfg, label, B, P, G, kind, seed):
+    """``cfg`` in bfloat16 through ServeEngine.generate: B prompts of P
+    tokens, G greedy new tokens; K3 and K2 must launch 2 and 1 times a MoE
+    layer a forward. Prints the metrics and a profile of the prefill and of
+    one decode step. Returns (engine, launches, tokens/s)."""
+    ttr = m["ttr"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = ttr.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {label}: params {param_counts(cfg, params)}, drawn in "
+          f"{time.perf_counter() - t0:.2f} s; B={B} prompts of {P} tokens, {G} greedy new "
+          f"tokens, max_len {P + G}")
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    engine = m["ServeEngine"](cfg, params, max_len=P + G, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    out, stats = engine.generate(prompts, G)
+    launches = {k: kops.launches[k] for k in ("bsr_sdd", "bsr_spmm")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_moe = moe_layers(cfg)
+    want = {"bsr_sdd": 2 * n_moe * G, "bsr_spmm": n_moe * G}  # G forwards
+    new = out[:, P:]
+    print(f"  generate: prefill ms={stats['prefill_s'] * 1e3:.3f} decode ms/step="
+          f"{stats['decode_s'] * 1e3 / (G - 1):.3f} tokens/s={stats['tokens_per_s']:.1f} "
+          f"(B x new tokens / decode s) peak GB={peak:.3f}; K3/K2 launches "
+          f"{launches['bsr_sdd']}/{launches['bsr_spmm']} over {G} forwards (expected "
+          f"{want['bsr_sdd']}/{want['bsr_spmm']})")
+    if tuple(out.shape) != (B, P + G) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+        raise AssertionError(f"{label} generate: tokens {tuple(out.shape)} out of range")
+    if launches != want:
+        raise AssertionError(f"{label} generate: launches {launches}, expected {want}")
+    with torch.inference_mode():
+        cache = ttr.init_cache(cfg, B, P + G, device=dev)
+        ssm_breakdown(torch, m, f"{label} prefill B={B} P={P}",
+                      lambda: engine._prefill(prompts, cache), kind)
+        tok = out[:, P:P + 1]
+        ssm_breakdown(torch, m, f"{label} one decode step at position {P}",
+                      lambda: engine._decode(tok, cache, P, 0.0, None), kind)
+        del cache
+    torch.cuda.empty_cache()
+    return engine, launches, stats["tokens_per_s"]
+
+
+def ssm_serve(args, torch, kops, m, dev, engine, label, n_req, lanes, prompts, gens, seed,
+              generate_tps, kind):
+    """The same engine through ServeEngine.serve: ``n_req`` requests, one
+    arriving a step, on ``lanes`` lanes, the largest page count whose
+    schedule evicts (found on the CPU; the card's run repeats it), the state
+    leaves of each parked sequence checked bit for bit at its resume. Every
+    request finishes, K3 and K2 launch 2 and 1 times a MoE layer a forward
+    or prefill. Then one decode step of all lanes under the profiler, and
+    the state gather alone beside its bytes bound. Returns the launches."""
+    import numpy as np
+
+    from repro_torch.serve.paged_cache import PagedKVCache, flatten
+
+    cfg = engine.cfg
+    n_moe = moe_layers(cfg)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(prompts[0], prompts[1] + 1, n_req)
+    news = rng.integers(gens[0], gens[1] + 1, n_req)
+    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, int(p)).astype(np.int32),
+                 max_new_tokens=int(g), rid=f"s{i}")
+            for i, (p, g) in enumerate(zip(lengths, news))]
+    max_len = prompts[1] + gens[1]
+    kw = dict(max_len=max_len, page_size=SSM_PAGE, max_batch=lanes)
+    t0 = time.perf_counter()
+    start = lanes * -(-max_len // SSM_PAGE)
+    pages, sims = cb_pages(m, torch, reqs, start, [kw])
+    sim_stats, sim_transcript = sims[0]
+    print(f"  serve: {n_req} requests, prompts {int(lengths.min())}-{int(lengths.max())} tokens, "
+          f"{int(news.min())}-{int(news.max())} greedy new tokens, one arriving a step; {lanes} "
+          f"lanes, page_size {SSM_PAGE}, max_len {max_len}; {pages} pages, the largest count "
+          f"from {start} down whose schedule evicts (found on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s: {sim_stats['evictions']} evictions)")
+    sched = engine.make_scheduler(num_pages=pages, **kw)
+    kv, parked, restored = sched.kv, {}, []
+    evict, resume = kv.evict, kv.resume
+
+    def spy_evict(rid):  # the parked sequence's state leaves, before and after
+        parked[rid] = [t for t, paged in zip(flatten(kv.read_dense(rid))[0], kv.paged)
+                       if not paged]
+        evict(rid)
+
+    def spy_resume(rid):
+        ok = resume(rid)
+        if ok:
+            back = [t for t, paged in zip(flatten(kv.read_dense(rid))[0], kv.paged) if not paged]
+            restored.append(all(torch.equal(a, b) for a, b in zip(back, parked.pop(rid))))
+        return ok
+
+    kv.evict, kv.resume = spy_evict, spy_resume
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    cb_drive(sched, reqs, timed=steps)
+    wall = time.perf_counter() - t0
+    launches = {k: kops.launches[k] for k in ("bsr_sdd", "bsr_spmm")}
+    st = sched.stats
+    forwards = sum(1 for ev, _, _ in steps if ev["running"])
+    prefills = st["admissions"] - st["resumes"]
+    want = {"bsr_sdd": 2 * n_moe * (forwards + prefills),
+            "bsr_spmm": n_moe * (forwards + prefills)}
+    pure = [ms for ev, ms, _ in steps if ev["running"] and not (
+        ev["admitted"] or ev["resumed"] or ev["evicted"])]
+    step_ms = statistics.median(pure)
+    n_state = sum(not p for p in kv.paged)
+    print(f"  served {st['finished']} requests in {wall:.3f} s: {st['finished'] / wall:.3f} "
+          f"requests/s, {st['decode_tokens'] / wall:.1f} decode tokens/s; steps {st['steps']} "
+          f"(decode forwards {forwards}, median pure decode step {step_ms:.3f} ms over "
+          f"{len(pure)}), prefills {prefills}, evictions {st['evictions']}, resumes "
+          f"{st['resumes']}; cache leaves: {kv.num_leaves - n_state} paged, {n_state} state; "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB; K3/K2 launches "
+          f"{launches['bsr_sdd']}/{launches['bsr_spmm']} (expected {want['bsr_sdd']}/"
+          f"{want['bsr_spmm']}); generate: {generate_tps:.1f} tokens/s")
+    checks = {
+        "all finished": st["finished"] == n_req,
+        "evicted and resumed": st["evictions"] >= 1 and st["resumes"] >= 1,
+        "state back bit for bit": bool(restored) and all(restored),
+        "K3/K2 launches": launches == want,
+        "the CPU schedule": sched.transcript == sim_transcript,
+    }
+    agree, total = 0, 0
+    for r in reqs[:2]:
+        out, _ = engine.generate(r["prompt"][None], r["max_new_tokens"])
+        mine = sched.requests[r["rid"]].tokens
+        agree += sum(a == b for a, b in zip(out[0, len(r["prompt"]):].tolist(), mine))
+        total += len(mine)
+    print(f"  greedy tokens of requests s0-s1 that equal generate's on each alone: {agree} of "
+          f"{total} (reported, not gated: batch composition changes bfloat16 rounding)")
+    failed = [k for k, ok in checks.items() if not ok]
+    print(f"  checks: {', '.join(f'{k} {ok}' for k, ok in checks.items())}")
+    if failed:
+        raise AssertionError(f"{label} serve: {failed} failed")
+    del sched
+
+    # one decode step of every lane under the profiler, then the gather alone
+    prof = engine.make_scheduler(num_pages=pages, **kw)
+    for i in range(lanes):
+        prof.submit(rng.integers(0, cfg.vocab_size, CB_PROFILE_P), 8, rid=f"p{i}")
+    prof.step()  # admits and prefills every lane, decodes once
+    ssm_breakdown(torch, m, f"{label} one continuous-batching decode step, {lanes} lanes at "
+                  f"position {CB_PROFILE_P + 1}", prof.step, kind,
+                  extra=[(PagedKVCache, "gather", "paged: gather view"),
+                         (PagedKVCache, "append_token", "paged: scatter (append_token)")])
+    rids = [r.rid for r in prof.lanes]
+    g_ms = median_ms(lambda: prof.kv.gather(rids), args.reps)
+    state = sum(prof.kv._state[rids[0]][i].numel() * prof.kv._state[rids[0]][i].element_size()
+                for i in range(kv.num_leaves) if not prof.kv.paged[i])
+    paged = prof.kv.view_pages * sum(a[0].numel() * a.element_size()
+                                     for a in prof.kv._arenas if a is not None)
+    g_bytes = len(rids) * (state + paged)
+    print(f"  the paged gather alone, {len(rids)} lanes: ms={g_ms:.4f} (CUDA events, median of "
+          f"{args.reps}); it reads and writes {g_bytes / 1e9:.4f} GB ({state / 1e6:.3f} MB of "
+          f"state a lane): bound {2 * g_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+    del prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssm_cli(torch, argv, dev):
+    """The serve CLI on ``dev``, in this process."""
+    from repro_torch.launch import serve as cli
+
+    argv = argv + ["--device", dev.type]
+    print(f"  CLI: python -m repro_torch.launch.serve {' '.join(argv)}")
+    out = cli.main(argv)
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_mamba_serve(args, torch, kops, kref, dev):
+    """Phase 12: the Mamba-2 models on the card. Returns, per kernel
+    (bsr_sdd, bsr_spmm), its jb_* JSON keys."""
+    t_start = time.perf_counter()
+    m = serve_modules()
+    jb_records = jb_kernels(args, torch, kops, kref, dev)
+    print("phase 12b: the Mamba-2 models at full width in float32 (TF32 off)")
+    check_model(args, torch, kops, m, dev, mamba2_model("float32"), M2, "recurrent SSD",
+                SSM_CHECK_B, SSM_CHECK_P, SSM_CHECK_STEPS, seed=args.seed + 31)
+    check_model(args, torch, kops, m, dev, jamba_model(JB_CHECK_KEEP, "float32"),
+                f"{JB} layers {JB_CHECK_KEEP}", "recurrent SSD", SSM_CHECK_B, SSM_CHECK_P,
+                SSM_CHECK_STEPS, seed=args.seed + 32, cf=16.0)
+
+    print("phase 12c: serve mamba2-1.3b whole (48 layers at the published widths), bfloat16")
+    engine, _, tps = ssm_generate(args, torch, kops, m, dev, mamba2_model("bfloat16"), M2,
+                                  M2_B, M2_P, M2_G, "parts", seed=args.seed + 33)
+    ssm_serve(args, torch, kops, m, dev, engine, M2, M2_REQUESTS, M2_LANES, M2_PROMPTS,
+              M2_GENS, args.seed + 34, tps, "parts")
+    del engine
+    torch.cuda.empty_cache()
+    ssm_cli(torch, ["--arch", M2, "--batch", "4", "--prompt-len", "64", "--gen", "16"], dev)
+
+    cfg = jamba_model(JB_KEEP, "bfloat16")
+    print(f"phase 12d: serve {JB} at its published widths cut to layers {JB_KEEP} of a "
+          f"super-block (Mamba + dense FFN, Mamba + MoE, attention + MoE), dropless, bfloat16")
+    engine, jb_launches, tps = ssm_generate(args, torch, kops, m, dev, cfg, "jamba", JB_B, JB_P,
+                                            JB_G, "kinds", seed=args.seed + 35)
+    serve_launches = ssm_serve(args, torch, kops, m, dev, engine, "jamba", JB_REQUESTS,
+                               JB_LANES, JB_PROMPTS, JB_GENS, args.seed + 36, tps, "kinds")
+    del engine
+    torch.cuda.empty_cache()
+    ssm_cli(torch, ["--arch", JB, "--reduced", "--continuous", "--requests", "6"], dev)
+    print(f"phase 12: {time.perf_counter() - t_start:.1f} s")
+    short = {"torch.bfloat16": "bf16", "torch.float32": "f32"}
+    fields = ("ms", "bound_ms", "fma_bound_ms", "plain_ms", "library_ms", "max_abs_err")
+    keys = {}
+    for kname in ("bsr_sdd", "bsr_spmm"):
+        out = keys[kname] = {}
+        for (k, shape, dt), rec in jb_records.items():
+            if k == kname:
+                for f in fields:
+                    if f in rec:
+                        out[f"jb_{shape}_{short[dt]}_{f}"] = rec[f]
+                out[f"jb_{shape}_{short[dt]}_launches"] = jb_launches[kname]
+        out["jb_serve_launches"] = serve_launches[kname]
+    return keys
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2513,6 +2897,9 @@ def main() -> int:
 
     # -- phase 11 ----------------------------------------------------------
     moe_serve_keys = phase_moe_serve(args, torch, kops, kref, dev)
+
+    # -- phase 12 ----------------------------------------------------------
+    mamba_keys = phase_mamba_serve(args, torch, kops, kref, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -2550,6 +2937,7 @@ def main() -> int:
         if kname == "bsr_spmm":  # phase 10: launches and step times under continuous batching
             extra.update(cb_keys)
         extra.update(moe_serve_keys.get(kname, {}))  # phase 11: llama4-scout, DeepSeek-V2
+        extra.update(mamba_keys.get(kname, {}))  # phase 12: jamba
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

@@ -33,6 +33,8 @@ _MODULES = {
     "granite-8b": ("granite_8b", "full", "reduced"),
     "llama3-8b": ("llama3_8b", "full", "reduced"),
     "llama3-8b-sable": ("llama3_8b", "full_sable", "reduced_sable"),
+    "mamba2-1.3b": ("mamba2_1_3b", "full", "reduced"),
+    "jamba-1.5-large-398b": ("jamba_1_5_large_398b", "full", "reduced"),
     "deepseek-v2-236b": ("deepseek_v2_236b", "full", "reduced"),
     "llama4-scout-17b-a16e": ("llama4_scout_17b_a16e", "full", "reduced"),
     "chameleon-34b": ("chameleon_34b", "full", "reduced"),

@@ -5,10 +5,11 @@ in the port, and a fixture ``.npz`` carries the same fields. The result has
 the same ``structure_hash`` and computes the same product.
 
 ``params_from_arrays`` carries a params tree across leaf for leaf: the
-reference's ``moe_init`` dict, so that both packages compute the same MoE
-layer, or its whole ``init_params`` tree (nested dicts and lists, stacked
-``(repeat, ...)`` group leaves, SABLE tiles ``(repeat, nt, tm, tk)``), so
-that both packages compute the same model.
+reference's ``moe_init`` or ``mamba_init`` dict, so that both packages
+compute the same layer, or its whole ``init_params`` tree (nested dicts and
+lists, stacked ``(repeat, ...)`` group leaves, SABLE tiles ``(repeat, nt,
+tm, tk)``), so that both packages compute the same model. It is generic:
+every leaf crosses under its own key, whatever the layer kind.
 """
 from __future__ import annotations
 
@@ -43,8 +44,11 @@ def params_from_arrays(tree, device=None, dtype=torch.float32):
     ``np.asarray`` takes), leaf for leaf in the same layout, in ``dtype`` on
     ``device`` (``None``: the card). MoE layouts: ``router (d, E)``,
     ``w1``/``w3`` ``(E, d, f)``, ``w2 (E, f, d)``, ``sw1``/``sw3`` ``(d, sf)``,
-    ``sw2 (sf, d)``. Values go through float32, which holds bfloat16 and
-    float16 exactly."""
+    ``sw2 (sf, d)``; Mamba-2: ``in_z``/``in_x`` ``(d, di)``, ``in_b``/``in_c``
+    ``(d, G*N)``, ``in_dt (d, H)``, ``conv_w (d_conv, ch)``, ``conv_b (ch,)``,
+    ``A_log``/``D``/``dt_bias`` ``(H,)``, ``norm (di,)``, ``out_proj (di,
+    d)``. Values go through float32, which holds bfloat16 and float16
+    exactly."""
     dev = resolve_device(device)
 
     def conv(t):

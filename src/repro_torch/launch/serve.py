@@ -12,6 +12,11 @@ mixed prompt and generation lengths, admission and eviction mid-decode)::
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b-sable \\
       --continuous --requests 12 --max-batch 4 --gen 32
 
+The Mamba-2 models serve the same way: ``--arch mamba2-1.3b`` (every cache
+leaf per-sequence state) and ``--arch jamba-1.5-large-398b --reduced``
+(Mamba, attention and MoE layers: paged KV and state in one cache); their
+caches refuse ``--prefix-sharing`` and ``--chunked-prefill``.
+
 Both run on the CUDA card (and fail without one); ``--device cpu`` runs the
 plain PyTorch versions of the kernels, e.g. with ``--reduced``. Params are
 random, drawn on the device from seed 0 and stored in the config's

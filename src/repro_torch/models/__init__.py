@@ -1,5 +1,5 @@
-"""Model zoo of the port: configs and functional transformer/MoE forward
-passes (``repro.models``' exports, for what is ported)."""
+"""Model zoo of the port: configs and functional transformer/MoE/Mamba-2
+forward passes (``repro.models``' exports, for what is ported)."""
 from .config import (
     GroupSpec,
     LayerSpec,
@@ -12,6 +12,7 @@ from .config import (
     param_count,
     uniform_groups,
 )
+from .ssm import mamba_apply, mamba_decode, mamba_init, ssd_chunked
 from .transformer import (
     decode_step,
     encode,

@@ -15,8 +15,14 @@ reference's ``init_params`` tree leaf for leaf. Where the reference scans
 over that axis, the port loops over the layers with views of it, and writes
 each layer's keys and values into the stacked cache in place.
 
-Ported: the GQA and MLA mixers, the dense FFN (dense or SABLE
-block-sparse) and the MoE FFN. Mamba, cross-attention, ``encode`` and
+A Mamba sub-layer's state leaves (``ssm_cache``: conv and SSD state) are
+written in place too: the chunked SSD in "prefill" mode, the recurrent step
+in "decode" mode, as the reference threads the mode. So every caller reads
+the new state from the cache it passed in (the scheduler's lane step and
+paged writes among them).
+
+Ported: the GQA, MLA and Mamba-2 mixers, the dense FFN (dense or SABLE
+block-sparse) and the MoE FFN. Cross-attention, ``encode`` and
 ``forward_train`` raise ``NotImplementedError`` until their slices.
 """
 from __future__ import annotations
@@ -30,6 +36,7 @@ from .attention import gqa_apply, gqa_init, mla_apply, mla_init
 from .config import GroupSpec, LayerSpec, ModelConfig
 from .layers import dense_init, ffn_apply, ffn_init, rmsnorm
 from .moe import moe_apply, moe_init
+from .ssm import mamba_apply, mamba_decode, mamba_init
 
 __all__ = [
     "init_params",
@@ -58,11 +65,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         )
     for g in cfg.groups:
         for s in g.layers:
-            if s.mixer == "mamba":
-                raise NotImplementedError(
-                    f"{cfg.name}: Mamba layers are not ported yet; they come with the "
-                    "Mamba slice"
-                )
             if s.cross_attn:
                 raise NotImplementedError(
                     f"{cfg.name}: cross-attention is not ported yet; it comes with the "
@@ -78,6 +80,9 @@ def _sublayer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, dev):
     if spec.mixer in ("gqa", "mla"):
         init = gqa_init if spec.mixer == "gqa" else mla_init
         p["mixer"] = init(gen, cfg, dtype, device=dev)
+        p["ln_mixer"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba_init(gen, cfg, dtype, device=dev)
         p["ln_mixer"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     if spec.ffn == "dense":
         p["ffn"] = ffn_init(gen, cfg, dtype=dtype, device=dev)
@@ -104,18 +109,30 @@ def _copy_layer(stacked, tree, i: int) -> None:
         stacked[i].copy_(tree)
 
 
+def _stack_one(tree):
+    """A (1, ...) view of each leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _stack_one(v) for k, v in tree.items()}
+    return tree.unsqueeze(0)
+
+
 def _group_init(gen, cfg, g: GroupSpec, dtype, dev):
-    """One group's params, each leaf stacked (repeat, ...). Layer by layer
-    into preallocated stacks (torch's own draws, not the reference's), so
-    that no more than one layer is ever held twice."""
-    stacked = None
+    """One group's params, each leaf stacked (repeat, ...). Sub-layer by
+    sub-layer into preallocated stacks (torch's own draws, not the
+    reference's), so that no more than one sub-layer is ever held twice; a
+    group of one layer keeps its draws as (1, ...) views, held once."""
+    stacked = {}
     for i in range(g.repeat):
-        block = {f"sub{j}": _sublayer_init(gen, cfg, s, dtype, dev)
-                 for j, s in enumerate(g.layers)}
-        if stacked is None:
-            stacked = _empty_like_stacked(block, g.repeat)
-        _copy_layer(stacked, block, i)
-        del block  # before the next layer's draws
+        for j, s in enumerate(g.layers):
+            sub = _sublayer_init(gen, cfg, s, dtype, dev)
+            key = f"sub{j}"
+            if g.repeat == 1:
+                stacked[key] = _stack_one(sub)
+                continue
+            if key not in stacked:
+                stacked[key] = _empty_like_stacked(sub, g.repeat)
+            _copy_layer(stacked[key], sub, i)
+            del sub  # before the next sub-layer's draws
     return stacked
 
 
@@ -150,6 +167,7 @@ def _block_apply(
     cache_slice: Optional[dict],
     cache_pos,
     causal: bool,
+    mode: str,
 ):
     aux = 0.0  # a float32 tensor once an MoE layer adds its loss
     eps = cfg.norm_eps
@@ -164,6 +182,16 @@ def _block_apply(
                 cache=c["attn"] if c else None, cache_pos=cache_pos, causal=causal,
             )
             x = x + o
+        elif spec.mixer == "mamba":
+            h = rmsnorm(x, p["ln_mixer"], eps)
+            if mode == "decode":
+                o, nc = mamba_decode(p["mixer"], h, cfg, c["ssm_cache"])
+            else:
+                o, nc = mamba_apply(p["mixer"], h, cfg, return_cache=c is not None)
+            x = x + o
+            if c is not None:
+                for k, v in nc.items():  # in place: callers read the cache they passed
+                    c["ssm_cache"][k].copy_(v)
         if spec.ffn == "dense":
             x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln_ffn"], eps), cfg)
         elif spec.ffn == "moe":
@@ -187,16 +215,17 @@ def _unstack(tree, n: int) -> list:
 
 
 def _run_groups(cfg: ModelConfig, groups, group_params, x, positions, caches, cache_pos,
-                causal):
+                causal, mode: str):
     """Run each group's layers in order over views of its stacked params
-    (and cache, written in place). Returns (x, caches, aux)."""
+    (and cache, written in place); ``mode`` is "prefill" or "decode".
+    Returns (x, caches, aux)."""
     aux_total = 0.0
     for gi, g in enumerate(groups):
         layers = _unstack(group_params[gi], g.repeat)
         layer_caches = _unstack(caches[gi] if caches is not None else None, g.repeat)
         for p_slice, c_slice in zip(layers, layer_caches):
             x, a = _block_apply(cfg, g.layers, p_slice, x, positions, c_slice, cache_pos,
-                                causal)
+                                causal, mode)
             aux_total = aux_total + a
     return x, caches, aux_total
 
@@ -214,6 +243,14 @@ def _sub_cache(cfg: ModelConfig, spec: LayerSpec, shape_prefix, s_max, dtype, de
         return {"attn": {
             "ckv": torch.zeros(shape_prefix + (s_max, m.kv_lora_rank), dtype=dtype, device=dev),
             "kr": torch.zeros(shape_prefix + (s_max, m.qk_rope_dim), dtype=dtype, device=dev),
+        }}
+    if spec.mixer == "mamba":  # whole per-sequence state: no sequence axis
+        s = cfg.ssm
+        ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
+        return {"ssm_cache": {
+            "conv": torch.zeros(shape_prefix + (s.d_conv - 1, ch), dtype=dtype, device=dev),
+            "ssm": torch.zeros(shape_prefix + (s.n_heads(cfg.d_model), s.d_state, s.head_dim),
+                               dtype=dtype, device=dev),
         }}
     return {}
 
@@ -286,12 +323,17 @@ def prefill(params, cfg: ModelConfig, tokens, cache, enc_out=None):
 def prefill_chunk(params, cfg: ModelConfig, tokens, cache, start: int, enc_out=None):
     """Process prompt positions [start, start+S), writing the cache at the
     same offsets and attending over every cached position <= each query.
-    With start == 0 this is exactly ``prefill``."""
+    With start == 0 this is exactly ``prefill``.
+
+    Only valid for models whose cache is entirely attention KV: a Mamba
+    sub-layer in "prefill" mode recomputes its state from scratch over just
+    this chunk (as the reference's does), so chunked callers (the serving
+    scheduler) gate on a fully-paged cache."""
     _no_encoder(enc_out)
     x = _embed(params, cfg, tokens)
     positions = start + torch.arange(tokens.shape[1], device=tokens.device)
     x, new_cache, _ = _run_groups(cfg, cfg.groups, params["groups"], x, positions, cache,
-                                  start, cfg.causal)
+                                  start, cfg.causal, "prefill")
     return _unembed(params, cfg, x[:, -1:]), new_cache
 
 
@@ -307,5 +349,5 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
         positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
                                device=token.device)
     x, new_cache, _ = _run_groups(cfg, cfg.groups, params["groups"], x, positions, cache,
-                                  pos, cfg.causal)
+                                  pos, cfg.causal, "decode")
     return _unembed(params, cfg, x), new_cache

@@ -19,9 +19,11 @@ a hit means the bytes are already in the arena.
 
 Leaf classification is structural: two ``init_cache`` templates with
 different ``s_max``; a leaf whose shape changes carries the sequence axis
-(at 2) and is paged, a shape-stable leaf (Mamba state, once that slice is
-ported) is per-sequence *state* stored whole. Leaves are taken in JAX's
-flattening order (lists in order, dict keys sorted).
+(at 2) and is paged, a shape-stable leaf (a Mamba sub-layer's conv and SSD
+state) is per-sequence *state* stored whole, one tensor a sequence in the
+cache's dtype, and replaced wholesale by every write. A cache may hold only
+state (mamba2) or both kinds (jamba). Leaves are taken in JAX's flattening
+order (lists in order, dict keys sorted).
 
 The arenas are torch tensors on the cache's device, shaped as the
 reference's: ``(num_pages + 1, repeat, page_size, ...feat)``. Page id
@@ -499,7 +501,7 @@ class PagedKVCache:
                 if end >= old_len and end % ps:
                     a[pages[-1], :, end % ps:] = 0
             else:
-                self._state[rid][i] = arr.clone()
+                self._state[rid][i] = arr.to(self._dtypes[i], copy=True)
         self.seq_len[rid] = max(old_len, end)
         if self.prefix_sharing:
             self._register(rid)
@@ -519,7 +521,7 @@ class PagedKVCache:
             if self.paged[i]:
                 self._arenas[i][page, :, off] = arr
             else:
-                self._state[rid][i] = arr.clone()
+                self._state[rid][i] = arr.to(self._dtypes[i], copy=True)
         self.seq_len[rid] = max(self.seq_len[rid], position + 1)
 
     # ------------------------------------------------------------------ #

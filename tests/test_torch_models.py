@@ -94,8 +94,8 @@ def _gqa_cfg():
 # configs
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("arch", ["nemotron-4-15b", "llama3.2-3b", "granite-8b", "llama3-8b",
-                                  "deepseek-v2-236b", "llama4-scout-17b-a16e",
-                                  "chameleon-34b"])
+                                  "mamba2-1.3b", "jamba-1.5-large-398b", "deepseek-v2-236b",
+                                  "llama4-scout-17b-a16e", "chameleon-34b"])
 def test_configs_equal_jax(jx, arch):
     from repro.models.config import param_count as jcount
 
@@ -124,9 +124,13 @@ def test_sable_configs_and_patterns_equal_jax(jx):
     for k in ("in", "out"):
         assert dataclasses.asdict(pats[k]) == dataclasses.asdict(jpats[k])
     assert tconfigs.ARCH_IDS == jx.configs.ARCH_IDS
-    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b", "seamless-m4t-large-v2"):
+    for arch in ("seamless-m4t-large-v2",):
         with pytest.raises(NotImplementedError, match=arch):
             tconfigs.get_config(arch)
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):  # ported with the Mamba slice
+        for reduced in (False, True):
+            assert dataclasses.asdict(tconfigs.get_config(arch, reduced=reduced)) == \
+                dataclasses.asdict(jx.configs.get_config(arch, reduced=reduced))
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-2")
 
@@ -292,15 +296,11 @@ def _shapes(tree):
 
 
 def test_left_out_parts_raise():
-    """Mamba, cross-attention, encoders and training are later slices."""
+    """Cross-attention, encoders and training are later slices."""
     ds = tconfigs.get_config("deepseek-v2-236b", reduced=True)
     gen = torch.Generator()
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         tattn.cross_init(gen, ds)
-    mamba = dataclasses.replace(
-        ds, groups=tconfig.uniform_groups(1, tconfig.LayerSpec(mixer="mamba")))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        ttr.init_cache(mamba, 1, 4, device=CPU)
     cfg = _gqa_cfg()
     with pytest.raises(NotImplementedError, match="training slice"):
         ttr.forward_train({}, cfg, {})
