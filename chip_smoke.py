@@ -212,6 +212,33 @@ Phases, each printing its lines:
             prefill, the same metrics and a breakdown by layer kind
             (Mamba, attention, router and dispatch, K3, K2, dense FFN,
             head); the reduced jamba through the serve CLI.
+13. train   drives the port's training path: (a) DeepSeek-V2's MoE layer at
+            full width, dropless, forward and backward (bfloat16 B=4,
+            float32 B=2, S=512; TF32 off): K3 2 and K2 1 launches in the
+            forward, and in the backward, each launch put to its table by
+            its block, K3 d/dS 1, K2 d/da 2 and K2 d/dW 3; every
+            gradient (x, router, w1, w2, w3, shared experts) against the
+            capacity path's (einsums, nothing dropped) and, at B=1 S=64,
+            against the family's plain versions (grouped), within 3e-2
+            (bfloat16) and 1e-4 (float32) of max|ref|; the backward's tables
+            after an L2 flush beside bound, plain version and library call:
+            K3 d/dS = sdd(g, w2^T) (w2^T made row-major), K2 d/da = dsd(G, w1^T) (w1^T made
+            row-major) and K2 d/dW = dsd(G^T, a) at tm 1536, tk 8; float32
+            repeats its bits; (b) llama3-8b-sable at its published widths
+            cut to 8 layers (1.74 G params, float32 params and AdamW state,
+            bfloat16 compute, remat "dots") trained 6 steps through
+            make_train_step and TrainLoop on SyntheticDataset 8 x 512 with
+            the FFN pinned to cuda: losses (falling), make_eval_step's CE
+            on a held-out batch before and after (it must fall by
+            EVAL_MARGIN), one adamw_update on four full-width leaves
+            against a plain float32 AdamW, ms a step, tokens/s,
+            peak memory, K2 launches, a checkpoint saved and restored into a
+            fresh loop bit for bit, one step by phase (forward, backward,
+            optimizer) and under torch.profiler (busy share, top kernels),
+            K2's time in the forward; (c) a 2-layer float32 cut: one step's
+            gradients with the FFN on cuda and on fixed_block (the family's
+            backward on K2 and K3) against grouped, within 1e-4; (d) the
+            training CLI in a subprocess, then --resume.
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -232,7 +259,11 @@ tables, launches from phase 11's llama4-scout generate; ds_{prefill,decode}
 _bf16_* at the served DeepSeek-V2's tables, launches from its generate, and
 ds_serve_launches from its serve; jb_{prefill,decode}_{bf16,f32}_* for K2
 and K3 at jamba's tables, launches from phase 12's jamba generate, and
-jb_serve_launches from its serve) and {"ok": true, "device": {...}}.
+jb_serve_launches from its serve; train_bwd_{ds,da,dw}_{bf16,f32}_* keys
+for the backward's tables (K3 ds and K2 da with copy_ms, K2 dw), their
+launches in 13a's backward counted by table, train_moe_*
+launches of 13a, train_step_* for 13b and train_cut_* for 13c) and
+{"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
 """
@@ -240,6 +271,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1572,7 +1604,7 @@ def phase_serve(args, torch, kops, kref, dev):
 
 
 def serve_llama(args, torch, kops, m, dev):
-    from repro_torch.serve.engine import _leaves
+    from repro_torch.tree import tree_leaves
 
     tcache, tlin, ttr, tautotune = m["tcache"], m["tlin"], m["ttr"], m["tautotune"]
     ServeEngine = m["ServeEngine"]
@@ -1595,7 +1627,7 @@ def serve_llama(args, torch, kops, m, dev):
         "FFN tiles": sum(v.numel() for v in gp["ffn"].values()),
         "embed and head": params["embed"].numel() + params["lm_head"].numel(),
     }
-    total = sum(v.numel() for _, v in _leaves(params))
+    total = sum(v.numel() for v in tree_leaves(params))
     print(f"  params: {total / 1e9:.4f} G ({', '.join(f'{k} {v / 1e9:.4f} G' for k, v in counts.items())}), "
           f"{total * 2 / 1e9:.3f} GB in bfloat16, drawn in {time.perf_counter() - t0:.2f} s")
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
@@ -1826,7 +1858,8 @@ def cb_check_cache(args, torch, m, dev):
     bfloat16: write_prefill of a random dense cache, then gather, read_dense,
     evict to host and resume give back the same bits, and the zero page
     stays zero."""
-    from repro_torch.serve.paged_cache import PagedKVCache, flatten, unflatten
+    from repro_torch.serve.paged_cache import PagedKVCache
+    from repro_torch.tree import flatten, unflatten
 
     cfg = replace(m["get_config"]("llama3-8b-sable"), param_dtype="bfloat16")
     kv = PagedKVCache(cfg, num_pages=40, page_size=CB_PAGE, max_len=CB_MAX_LEN, device=dev)
@@ -2045,14 +2078,14 @@ def moe_layers(cfg) -> int:
 def param_counts(cfg, params) -> str:
     """The params by part: a layer of each kind (MoE, Mamba, dense; a group
     of several kinds by sub-layer), embed and head."""
-    from repro_torch.serve.engine import _leaves
+    from repro_torch.tree import tree_leaves
 
-    total = sum(v.numel() for _, v in _leaves(params))
+    total = sum(v.numel() for v in tree_leaves(params))
     parts = {"total": total, "embed and head": params["embed"].numel()
              + (params["lm_head"].numel() if "lm_head" in params else 0)}
     for g, gp in zip(cfg.groups, params["groups"]):
         for j, s in enumerate(g.layers):
-            n = sum(v.numel() for _, v in _leaves(gp[f"sub{j}"])) // g.repeat
+            n = sum(v.numel() for v in tree_leaves(gp[f"sub{j}"])) // g.repeat
             kind = f"a {s.mixer} + {s.ffn} layer"
             parts[kind] = n
     es = params["embed"].element_size()
@@ -2588,7 +2621,8 @@ def ssm_serve(args, torch, kops, m, dev, engine, label, n_req, lanes, prompts, g
     the state gather alone beside its bytes bound. Returns the launches."""
     import numpy as np
 
-    from repro_torch.serve.paged_cache import PagedKVCache, flatten
+    from repro_torch.serve.paged_cache import PagedKVCache
+    from repro_torch.tree import flatten
 
     cfg = engine.cfg
     n_moe = moe_layers(cfg)
@@ -2755,6 +2789,680 @@ def phase_mamba_serve(args, torch, kops, kref, dev):
     return keys
 
 
+# ---------------------------------------------------------------------- #
+# phase 13: training
+# ---------------------------------------------------------------------- #
+# a gradient leaf, max|err| / max|ref|: float32 sums over up to 2048 tokens in
+# another order; bfloat16 products rounded to 8 bits of mantissa on both sides
+GRAD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 3e-2}
+# 13a: DeepSeek-V2's MoE layer at prefill, by dtype. float32 at B=2 (traffic,
+# not width): the capacity path that holds its gradients keeps ~37 GB of
+# activations at B=4 (einsum's permuted copies of the dispatch buffer
+# among them) beside 15.3 GB of params and as much of gradients
+BWD_SHAPE = {"torch.bfloat16": (4, 512), "torch.float32": (2, 512)}
+GROUPED_S = 64  # 13a's check against the family's plain versions: B=1
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 8, 512, 6, 1e-3  # 13b
+# 13b's eval gate: the mean CE on a batch no step trains on (SyntheticDataset
+# step EVAL_STEP) must fall by EVAL_MARGIN over the steps; a zero update
+# leaves it where it was and a sign-flipped one raises it
+EVAL_STEP, EVAL_MARGIN = 1000, 0.05
+ADAMW_LEAVES = ("embed", "final_norm", "groups/0/sub0/ffn/w1", "groups/0/sub0/mixer/wq")
+# max|port - plain| / max|plain| of the moments and the params' change; the
+# change is read back as p_new - p in float32, so its tolerance is at least
+# two float32 ulps of max|p| over max|change| (a norm's scales are ~1, its
+# change ~lr)
+ADAMW_TOL = 1e-5
+CUT_B, CUT_S = 2, 128  # 13c
+
+
+def moe_grads(torch, tmoe, p, x, cot, cfg, after_forward=None):
+    """Gradients of sum(y * cot) + aux w.r.t. x and every param of the MoE
+    layer, by name; ``after_forward()`` is called between the forward and
+    the backward."""
+    names = ["x"] + sorted(p)
+    leaves = [x] + [p[k] for k in sorted(p)]
+    for t in leaves:
+        t.requires_grad_(True)
+    y, aux = tmoe.moe_apply(p, x, cfg)
+    loss = (y.float() * cot).sum() + aux
+    del y
+    if after_forward is not None:
+        after_forward()
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return dict(zip(names, grads))
+
+
+def check_grads(label, got, want, dtype) -> dict:
+    """Each leaf's gradient within GRAD_TOL[dtype] of max|ref|; returns
+    {leaf: relative error}."""
+    tol = GRAD_TOL[str(dtype)]
+    rels = {}
+    for k in want:
+        err, rel = rel_err(got[k], want[k])
+        rels[k] = rel
+        if not (rel <= tol and bool(torch_isfinite(got[k]))):
+            raise AssertionError(f"{label} d/d{k}: relative error {rel:.3e} above {tol:g}")
+    print(f"  {label}: max|err|/max|ref| by leaf "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" tol={tol:g} ok")
+    return rels
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t.float()).all())
+
+
+def k2_library(torch, tiles, rows, cols, shape, x, want, reps, flush):
+    """torch.sparse_csr_tensor(...) @ x (cuSPARSE) over the element-level CSR
+    of the valid tiles, in x's dtype, held against the kernel's output."""
+    n, tm, tk = tiles.shape
+    dev = tiles.device
+
+    def make():
+        r, c = rows.long(), cols.long()
+        er = (r[:, None, None] * tm + torch.arange(tm, device=dev)[None, :, None]).expand(
+            -1, tm, tk)
+        ec = (c[:, None, None] * tk + torch.arange(tk, device=dev)[None, None, :]).expand(
+            -1, tm, tk)
+        idx = torch.stack([er.reshape(-1), ec.reshape(-1)])
+        csr = torch.sparse_coo_tensor(idx, tiles.reshape(-1), shape).coalesce().to_sparse_csr()
+        return lambda: csr @ x
+
+    return library_time(f"bsr_spmm library call sparse_csr_tensor(...) @ x "
+                        f"({str(x.dtype)[6:]})", make, want, x.dtype, reps, before=flush)
+
+
+def time_k2_table(args, torch, kops, kref, sp, x, tag, flush, n_check=3):
+    """K2 at the tables of ``dsd(sp, x)`` as bsr_ops builds them (m_pad = M,
+    row offsets over the real row tiles), timed after ``flush()``, beside
+    its bound, its plain version on ``n_check`` whole row tiles and the
+    library call; in float32 the last timed launch must give the first
+    one's bits."""
+    from repro_torch.kernels import _build
+
+    ext = _build.load_kernels()
+    dev, dtype = x.device, x.dtype
+    tiles = sp.data.contiguous()
+    rows, cols = sp.row_indices, sp.column_indices
+    (M, _), (tm, tk) = sp.shape, sp.block
+    n, R = x.shape[1], M // tm
+    rptr = kops.row_ptr_from_ids(rows, R)
+    if dtype == torch.float32:
+        sched = kops.bsr_schedule("spmm", rptr, tm, tk, n, dtype)
+        partial = torch.empty(2 * sched.shape[0] * tm * n, dtype=torch.float32, device=dev)
+    else:
+        sched = partial = torch.empty(0, device=dev)
+    y = torch.empty((M, n), dtype=dtype, device=dev)
+    launch = lambda: ext.bsr_spmm(tiles, rptr, cols, x, y, sched, partial)  # noqa: E731
+    launch()
+    first = y.clone() if dtype == torch.float32 else None
+    ms = median_ms(launch, args.reps, flush)
+    if first is not None:
+        same_bits(f"{tag}, last timed launch", first, y)
+    del first
+    valid = rows < R
+    n_valid = int(valid.sum())
+    live = torch.unique(rows[valid])
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    pick = live[torch.randperm(live.numel(), generator=gen, device=dev)[:n_check]]
+    sel = (torch.isin(rows, pick) & valid).nonzero().squeeze(1)
+    out_rows = (pick[:, None] * tm + torch.arange(tm, device=dev)).reshape(-1)
+    s_tiles, s_rows, s_cols = tiles[sel].contiguous(), rows[sel], cols[sel]
+    plain = lambda: kref.bsr_spmm_ref(s_tiles, s_rows, s_cols, x, M)  # noqa: E731
+    err = check(f"{tag}: timed launch's output on {pick.numel()} whole row tiles "
+                f"({len(sel)} tiles) vs plain", y[out_rows], plain()[out_rows], dtype)
+    plain_ms = median_ms(plain, args.reps, flush)
+    es = x.element_size()
+    n_x = int(torch.unique(cols[valid]).numel())
+    need = (n_valid * tm * tk + n_x * tk * n + M * n) * es + nbytes(rptr, cols[:n_valid])
+    ops = 2 * n_valid * tm * tk * n
+    bound = bound_fields(need, ops, dtype)
+    lib_ms, lib_txt = k2_library(torch, tiles[:n_valid], rows[:n_valid], cols[:n_valid],
+                                 (M, x.shape[0]), x, y, args.reps, flush)
+    print(f"  {tag}: tiles={tiles.shape[0]} ({n_valid} valid) tm={tm} tk={tk} n={n} "
+          f"ms={ms:.4f} {bound_text(bound, need, ops)} "
+          f"roofline_share={bound['bound_ms'] / ms:.3f}; on {len(sel)} tiles of "
+          f"{pick.numel()} row tiles: plain_ms={plain_ms:.4f}; library_ms={lib_txt}")
+    del y
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bound)
+
+
+def time_k3_table(args, torch, kops, kref, a, b, topo, tag, flush, n_sample=60):
+    """K3 at the tables of ``sdd(a, b, topo)`` with ``b`` as given (its body
+    ``sdd_body``'s choice), timed after ``flush()``, beside its bound, its
+    plain version on sampled slots and (float32) sampled_addmm."""
+    from repro_torch.kernels import _build
+
+    ext = _build.load_kernels()
+    dev, dtype = a.device, a.dtype
+    (bm, bn), K = topo.block, a.shape[1]
+    rows, cols = topo.row_indices, topo.column_indices
+    nnz, n_valid = topo.nnz_max, int(topo.n_blocks)
+    body = kops.sdd_body(a, b)
+    out = torch.empty((nnz, bm, bn), dtype=dtype, device=dev)
+    launch = lambda: ext.bsr_sdd(a, b, rows, cols, out, body == "cp.async")  # noqa: E731
+    launch()
+    first = out.clone() if dtype == torch.float32 else None
+    ms = median_ms(launch, args.reps, flush)
+    if first is not None:
+        same_bits(f"{tag}, last timed launch", first, out)
+    del first
+    pick = sample_slots(torch, topo, args.seed + 4, n=n_sample)
+    sample = (rows[pick], cols[pick])
+    plain = lambda: kref.bsr_sdd_ref(a, b, *sample, bm, bn)  # noqa: E731
+    err = check(f"{tag} ({len(pick)} sampled slots) kernel vs plain", out[pick], plain(),
+                dtype)
+    plain_ms = median_ms(plain, args.reps, flush)
+    valid = rows < topo.n_block_rows
+    n_a = int(torch.unique(rows[valid]).numel())
+    n_b = int(torch.unique(cols[valid]).numel())
+    need = (n_a * bm * K + n_b * K * bn + nnz * bm * bn) * a.element_size() + nbytes(rows, cols)
+    ops = 2 * n_valid * bm * bn * K
+    bound = bound_fields(need, ops, dtype)
+    lib_ms, lib_txt = sdd_library(torch, a, b, topo, out, n_valid, args.reps, flush)
+    print(f"  {tag}: slots={nnz} ({n_valid} valid) bm={bm} bn={bn} K={K} "
+          f"body={body_label(dtype, body)} ms={ms:.4f} {bound_text(bound, need, ops)} "
+          f"roofline_share={bound['bound_ms'] / ms:.3f}; on {len(pick)} sampled slots: "
+          f"plain_ms={plain_ms:.4f}; library_ms={lib_txt}")
+    del out
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                body=body_label(dtype, body), **bound)
+
+
+class LaunchTables:
+    """Attributes each K2/K3 launch to its table while installed: the
+    wrappers ``kops.bsr_spmm`` and ``kops.bsr_sdd`` are wrapped, their own
+    counts read around each call, and every launch so counted logged with
+    its kernel and its block (K2: the tiles' (tm, tk); K3: the output's
+    (bm, bn)). The wrappers' counts are left as they are."""
+
+    def __init__(self, kops):
+        self.kops, self.log = kops, []
+
+    def _spy(self, name, fn, block):
+        def call(*a, **k):
+            before = self.kops.launches[name]
+            out = fn(*a, **k)
+            blk = block(a, k, out)
+            self.log.extend([(name, blk)] * (self.kops.launches[name] - before))
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = self.kops.bsr_spmm, self.kops.bsr_sdd
+        self.kops.bsr_spmm = self._spy("bsr_spmm", self.saved[0],
+                                       lambda a, k, out: tuple(a[0].shape[1:]))
+        self.kops.bsr_sdd = self._spy("bsr_sdd", self.saved[1],
+                                      lambda a, k, out: (k["bm"], k["bn"]))
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.bsr_spmm, self.kops.bsr_sdd = self.saved
+
+
+def bwd_table(name, block, bm, f):
+    """The backward's table of a launch: K3 is d/dS = sdd(g, w2^T); K2 at
+    (tm, tk) = (bm, f) is d/da = dsd(G, w^T), at (f, bm) d/dW = dsd(G^T, a)."""
+    if name == "bsr_sdd" and block == (bm, f):
+        return "bwd_ds"
+    return {(bm, f): "bwd_da", (f, bm): "bwd_dw"}.get(block, f"{name} {block}")
+
+
+def phase_train_moe(args, torch, kops, kref, dtype):
+    """Phase 13a in ``dtype``: the dropless layer's gradients on K3/K2 at
+    full width against the capacity path's (einsums, nothing dropped), and
+    the backward's tables timed. Returns (records, launches)."""
+    from repro_torch.kernels import bsr_ops
+    from repro_torch.models import moe as tmoe
+    from repro_torch.sparse.block_csr import BlockMatrix
+
+    dname = str(dtype)[6:]
+    cfg, cfg_cap = moe_configs()
+    d, E, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff
+    B, S = BWD_SHAPE[str(dtype)]
+    print(f"phase 13a: DeepSeek-V2-236B MoE layer at full width, dropless, forward and "
+          f"backward ({dname}, B={B} S={S})")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    p = tmoe.moe_init(gen, cfg, dtype=dtype, device=dev)
+    x = torch.randn((B, S, d), generator=gen, device=dev).to(dtype)
+    cot = torch.randn((B, S, d), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = moe_grads(torch, tmoe, p, x, cot, cfg_cap)
+    torch.cuda.synchronize()
+    cap_s, cap_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    fwd = {}
+    t0 = time.perf_counter()
+    with LaunchTables(kops) as lt:
+        # the forward's launches read and the log cleared before the backward
+        got = moe_grads(torch, tmoe, p, x, cot, cfg,
+                        after_forward=lambda: (fwd.update(kops.launches), lt.log.clear()))
+    torch.cuda.synchronize()
+    drop_s = time.perf_counter() - t0
+    launches = dict(kops.launches)
+    by_table = {}
+    for name, block in lt.log:
+        t = bwd_table(name, block, cfg.moe.dropless_block, f)
+        by_table[t] = by_table.get(t, 0) + 1
+    print(f"  launches of one forward and backward, dropless ({dname}): {launches}; the "
+          f"forward's {fwd}; the backward's by table {by_table} (want K3 2 and K2 1 "
+          f"forward; backward d/dS 1, d/da 2 (w1, w3), d/dW 3 (w1, w3, w2))")
+    if (launches["bsr_sdd"] != 3 or launches["bsr_spmm"] != 6 or fwd["bsr_sdd"] != 2
+            or fwd["bsr_spmm"] != 1 or by_table != {"bwd_ds": 1, "bwd_da": 2, "bwd_dw": 3}):
+        raise AssertionError(f"dropless forward and backward ({dname}): launches {launches}, "
+                             f"forward {fwd}, backward by table {by_table}")
+    launches["by_table"] = by_table
+    print(f"  peak device memory: capacity path {cap_peak:.3f} GB ({cap_s:.2f} s), dropless "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({drop_s:.2f} s, first call)")
+    check_grads(f"gradients dropless (K3/K2) vs capacity path (einsums), {dname}", got, want,
+                dtype)
+    del got, want
+    torch.cuda.empty_cache()
+    # the family's plain versions (grouped) gather a weight block a slot: at
+    # B=1, S=64 (208 slots, 3.3 GB of blocks in bf16) they fit beside the layer
+    import functools
+
+    xs, cots = x[:1, :GROUPED_S], cot[:1, :GROUPED_S]
+    saved = tmoe.sdd, tmoe.dsd
+    tmoe.sdd = functools.partial(bsr_ops.sdd, backend="grouped")
+    tmoe.dsd = functools.partial(bsr_ops.dsd, backend="grouped")
+    try:
+        want = moe_grads(torch, tmoe, p, xs, cots, cfg)  # first: its peak is the larger
+    finally:
+        tmoe.sdd, tmoe.dsd = saved
+    got = moe_grads(torch, tmoe, p, xs, cots, cfg)
+    check_grads(f"gradients dropless, cuda (K3/K2) vs grouped (plain), B=1 S={GROUPED_S}, "
+                f"{dname}", got, want, dtype)
+    del got, want, xs, cots
+    torch.cuda.empty_cache()
+
+    print(f"phase 13a: the backward's tables ({dname}, median of {args.reps} calls after an "
+          f"L2 flush, CUDA events)")
+    flush = l2_flush(torch)
+    with torch.no_grad():
+        r = tmoe._route(p, x, cfg)
+        a = tmoe._dispatch(x, r, cfg).reshape(-1, d)
+        topo = tmoe._dropless_topology(r.counts, r.C, r.Tg, cfg, f)
+        M = a.shape[0]
+        g_out = torch.randn((M, d), generator=gen, device=dev).to(dtype)  # d loss / d dsd out
+        g_blocks = torch.randn((topo.nnz_max, topo.block[0], f), generator=gen,
+                               device=dev).to(dtype)
+        G = BlockMatrix(topo.shape, topo.block, torch.where(topo.valid[:, None, None],
+                                                            g_blocks, 0),
+                        topo.row_indices, topo.column_indices, topo.offsets)
+        del g_blocks
+        recs = {}
+        # d/dS of out = dsd(S, w2 (E*f, d)): sdd(g, w2^T, S), bsr_ops handing K3
+        # a row-major copy of w2^T (its cp.async body)
+        w2t = p["w2"].reshape(E * f, d).T.unflatten(1, (E, f))
+        t_copy = median_ms(lambda: w2t.contiguous(), args.reps, flush)
+        w2c = w2t.contiguous()
+        recs["bwd_ds"] = time_k3_table(args, torch, kops, kref, g_out, w2c, topo,
+                                       f"bsr_sdd bwd d/dS = sdd(g, w2^T) {dname}", flush)
+        del w2c, w2t
+        print(f"  d/dS: w2^T made row-major ({nbytes(p['w2']) / 1e9:.2f} GB) "
+              f"ms={t_copy:.4f}, K3's cp.async body on it ms={recs['bwd_ds']['ms']:.4f}: "
+              f"{t_copy + recs['bwd_ds']['ms']:.4f} ms")
+        recs["bwd_ds"]["copy_ms"] = t_copy
+        # d/da of h = sdd(a, w1 view): dsd(G, w1^T), w1^T a row-major copy
+        t_w1t = median_ms(lambda: p["w1"].transpose(1, 2).reshape(E * f, d), args.reps, flush)
+        w1t = p["w1"].transpose(1, 2).reshape(E * f, d)
+        print(f"  d/da = dsd(G, w1^T): w1^T as the row-major (E*f, d) operand K2 takes, "
+              f"a copy of {nbytes(w1t) / 1e9:.2f} GB, ms={t_w1t:.4f} (twice a backward, with w3)")
+        recs["bwd_da"] = time_k2_table(args, torch, kops, kref, G, w1t,
+                                       f"bsr_spmm bwd d/da = dsd(G, w1^T) {dname}", flush)
+        recs["bwd_da"]["copy_ms"] = t_w1t
+        del w1t
+        torch.cuda.empty_cache()
+        # d/dw1 of h = sdd(a, w1 view): dsd(G^T, a), K2 at tm = f, tk = 8
+        GT = G.transpose()
+        recs["bwd_dw"] = time_k2_table(args, torch, kops, kref, GT, a,
+                                       f"bsr_spmm bwd d/dW = dsd(G^T, a) {dname}", flush)
+        del GT, G, a, topo, r
+    del p, x, cot, flush
+    torch.cuda.empty_cache()
+    return recs, launches
+
+
+def step_phases(torch, tstep):
+    """Within the block, the train step's forward (forward_train and the
+    loss), backward (autograd.grad) and optimizer (adamw_update) each record
+    CUDA events around their work on the stream; ``times()`` gives their
+    device ms of the last step."""
+    class Phases:
+        def __enter__(self):
+            self.events, self.saved = {}, []
+            for mod, attr, label in ((tstep, "forward_train", "forward"),
+                                     (torch.autograd, "grad", "backward"),
+                                     (tstep, "adamw_update", "optimizer")):
+                fn = getattr(mod, attr)
+                self.saved.append((mod, attr, fn))
+
+                def wrapped(*a, _fn=fn, _label=label, **k):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    out = _fn(*a, **k)
+                    end.record()
+                    self.events[_label] = (start, end)
+                    return out
+
+                setattr(mod, attr, wrapped)
+            return self
+
+        def times(self):
+            torch.cuda.synchronize()
+            return {k: s.elapsed_time(e) for k, (s, e) in self.events.items()}
+
+        def __exit__(self, *exc):
+            for mod, attr, fn in reversed(self.saved):
+                setattr(mod, attr, fn)
+
+    return Phases()
+
+
+def train_model(m, layers, dtype=None):
+    """llama3-8b-sable at its published widths cut to ``layers`` layers (the
+    config's param and compute dtypes, or ``dtype`` for both)."""
+    tconfig = m["tconfig"]
+    cfg = replace(m["get_config"]("llama3-8b-sable"),
+                  groups=tconfig.uniform_groups(layers, tconfig.LayerSpec(mixer="gqa",
+                                                                           ffn="dense")))
+    if dtype is not None:
+        cfg = replace(cfg, compute_dtype=dtype, param_dtype=dtype)
+    return cfg
+
+
+def check_adamw(torch, params, opt, opt_cfg, seed):
+    """One ``adamw_update`` at full width on copies of ADAMW_LEAVES (their
+    moments and count as training left them; bfloat16 gradients, as the
+    step's compression gives them, drawn from ``seed``) against a plain
+    float32 AdamW written out here, leaf by leaf: the params' change, mu
+    and nu within ADAMW_TOL of max|plain|. Returns the worst error."""
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.tree import tree_paths
+
+    p0, mu0, nu0 = (dict(tree_paths(t)) for t in (params, opt["mu"], opt["nu"]))
+    dev = p0[ADAMW_LEAVES[0]].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = {n: torch.randn(p0[n].shape, generator=gen, device=dev).to(torch.bfloat16)
+             for n in ADAMW_LEAVES}
+    # the plain AdamW first, then the port's on copies, in place
+    b1, b2, eps, wd, lr = opt_cfg.b1, opt_cfg.b2, opt_cfg.eps, opt_cfg.weight_decay, opt_cfg.lr
+    k = int(opt["count"]) + 1
+    gn = math.sqrt(sum(float(g.float().square().sum()) for g in grads.values()))
+    scale = min(1.0, opt_cfg.clip_norm / (gn + 1e-9))
+    c1, c2 = 1 - b1 ** k, 1 - b2 ** k
+    plain = {}
+    for n in ADAMW_LEAVES:
+        p, g = p0[n].detach().float(), grads[n].float() * scale
+        mu = mu0[n].float() * b1 + (1 - b1) * g
+        nu = nu0[n].float() * b2 + (1 - b2) * g * g
+        upd = (mu / c1) / ((nu / c2).sqrt() + eps) + (wd * p if p.dim() >= 2 else 0)
+        plain[n] = (-lr * upd, mu, nu)
+        del p, g, upd
+    sub = {n: p0[n].detach().clone() for n in ADAMW_LEAVES}
+    state = {"mu": {n: mu0[n].clone() for n in ADAMW_LEAVES},
+             "nu": {n: nu0[n].clone() for n in ADAMW_LEAVES}, "count": opt["count"].clone()}
+    adamw_update(sub, grads, state, opt_cfg)
+    worst = 0.0
+    for n in ADAMW_LEAVES:
+        got = ((sub[n].float() - p0[n].detach().float()), state["mu"][n], state["nu"][n])
+        rels = [rel_err(a, b)[1] for a, b in zip(got, plain[n])]
+        ulps = 2 * torch.finfo(torch.float32).eps * p0[n].detach().abs().max().item()
+        tol = max(ADAMW_TOL, ulps / plain[n][0].abs().max().item())
+        worst = max(worst, *rels)
+        print(f"  adamw_update at full width, {n} {tuple(p0[n].shape)}: max|err|/max|plain| "
+              f"of the change {rels[0]:.2e} (tol {tol:.2e}), mu {rels[1]:.2e}, nu "
+              f"{rels[2]:.2e} (tol {ADAMW_TOL:g})")
+        if not (rels[0] <= tol and max(rels[1:]) <= ADAMW_TOL):
+            raise AssertionError(f"adamw_update on {n} differs from the plain AdamW: {rels}")
+        del got
+    if int(state["count"]) != k:
+        raise AssertionError(f"adamw_update's count {int(state['count'])}, want {k}")
+    print(f"  adamw_update vs plain float32 AdamW (count {k}, |g| {gn:.4e}, clip scale "
+          f"{scale:.4e}): worst {worst:.2e} ok")
+    del plain, sub, state, grads
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train_llama(args, torch, kops, m, dev):
+    """Phase 13b: llama3-8b-sable at its published widths, cut to
+    TRAIN_LAYERS layers, trained through make_train_step and TrainLoop with
+    the FFN pinned to cuda (K2). Returns its record."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.tree import tree_leaves
+
+    ttr = m["ttr"]
+    cfg = train_model(m, TRAIN_LAYERS)
+    pats = m["tlayers"].sable_patterns(cfg)
+    pin_strategy(m, list(pats.values()), "cuda", dev)
+    print(f"phase 13b: train llama3-8b-sable at its published widths cut to {TRAIN_LAYERS} of "
+          f"32 layers (d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; FFN matrices of {pats['in'].n_tiles} tiles of "
+          f"{pats['in'].tm} x {pats['in'].tk}, pinned to cuda), params {cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}, remat {cfg.remat!r}, AdamW lr {TRAIN_LR} with the "
+          f"reference's defaults (gradients cast to bfloat16); SyntheticDataset "
+          f"{TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} steps")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = ttr.init_params(cfg, gen, device=dev)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    opt = adamw_init(params, opt_cfg)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    state_gb = sum(nbytes(t) for t in tree_leaves(params) + tree_leaves(opt)) / 1e9
+    print(f"  params: {n_params / 1e9:.4f} G; params and AdamW state {state_gb:.3f} GB")
+    step = tstep.make_train_step(cfg, opt_cfg, ParallelConfig())
+    ds = SyntheticDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=args.seed)
+    loop = TrainLoop(step, ds)
+    eval_fn = tstep.make_eval_step(cfg)
+    held = ds._batch_at(EVAL_STEP)  # a batch no step trains on
+    eval_before = float(eval_fn(params, held))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    params, opt, metrics = loop.run(params, opt, TRAIN_STEPS, log_every=1,
+                                    log_fn=lambda s: print(f"  {s}"))
+    torch.cuda.synchronize()
+    launches = dict(kops.launches)
+    eval_after = float(eval_fn(params, held))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = loop.losses
+    recompute = cfg.remat in ("full", "dots")
+    print(f"  launches over {TRAIN_STEPS} steps: {launches} ({launches['bsr_spmm'] / TRAIN_STEPS:.0f} "
+          f"K2 a step: 3 a layer in the forward"
+          + (f", recomputed in the backward under {cfg.remat!r})" if recompute else ")"))
+    if launches["bsr_spmm"] == 0:
+        raise AssertionError("the train step never launched K2")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses} do not fall")
+    fall = eval_before - eval_after
+    print(f"  eval (make_eval_step) on the held-out batch at data step {EVAL_STEP}: "
+          f"{eval_before:.4f} before, {eval_after:.4f} after {TRAIN_STEPS} steps: fell "
+          f"{fall:.4f} (must fall by {EVAL_MARGIN:g}) {'ok' if fall >= EVAL_MARGIN else 'FAIL'}")
+    if not fall >= EVAL_MARGIN:
+        raise AssertionError(f"held-out eval fell {fall:.4f}, under {EVAL_MARGIN:g}")
+    adamw_worst = check_adamw(torch, params, opt, opt_cfg, args.seed + 17)
+    times = loop.monitor.times[1:]  # the first step builds the kernels' schedules
+    step_ms = statistics.median(times) * 1e3
+    tps = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    print(f"  losses {['%.4f' % v for v in losses]} (falling: ok); step ms (median of steps "
+          f"2-{TRAIN_STEPS}, host clock to the loss on the host)={step_ms:.2f} tokens/s="
+          f"{tps:.1f} peak device memory={peak:.3f} GB; grad_norm="
+          f"{float(metrics['grad_norm']):.4f}")
+
+    # checkpoint round trip into a fresh loop
+    with tempfile.TemporaryDirectory(prefix="repro-train-ckpt-") as tmp:
+        import shutil
+
+        free = shutil.disk_usage(tmp).free / 1e9
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(loop.step, {"params": params, "opt": opt}, extra={"data": ds.state_dict()})
+        save_s = time.perf_counter() - t0
+        fresh = TrainLoop(step, SyntheticDataset(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                                                 seed=args.seed), ckpt_dir=tmp)
+        t0 = time.perf_counter()
+        p2, o2, resumed = fresh.maybe_restore(params, opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b.detach()) and a.dtype == b.dtype for a, b in
+                   zip(tree_leaves({"p": p2, "o": o2}), tree_leaves({"p": params, "o": opt})))
+        ok = resumed and same and fresh.step == loop.step and \
+            fresh.dataset.state_dict() == ds.state_dict()
+        print(f"  checkpoint at step {loop.step} ({state_gb:.3f} GB; {free:.0f} GB free there): "
+              f"save {save_s:.2f} s, restore into a fresh loop {restore_s:.2f} s; params, "
+              f"AdamW state and the data step bit for bit {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("checkpoint round trip differs")
+        del p2, o2, fresh
+    torch.cuda.empty_cache()
+
+    # where a step's time goes
+    k = loop.step
+    batch = ds._batch_at(k)
+    with step_phases(torch, tstep) as ph:
+        for _ in range(2):  # the second step: nothing else queued before it
+            torch.cuda.synchronize()
+            step(params, opt, batch, k)
+            ph_ms = ph.times()
+    print("  one step by phase (CUDA events on the stream, ms): "
+          + ", ".join(f"{n} {v:.2f}" for n, v in ph_ms.items()))
+    device_breakdown(torch, "train step", lambda: step(params, opt, batch, k), top=8)
+    tb = tstep.batch_to_device(batch, dev)
+    fwd = profile_ranges(torch, [], lambda: ttr.forward_train(params, cfg, tb))
+    k2_fwd = None
+    if fwd is not None:
+        _, _, table, busy, wall = fwd
+        k2_fwd = sum(r[0] for n, r in table.items() if "bsr_spmm" in n or "combine_kernel" in n)
+        n_k2 = sum(r[2] for n, r in table.items() if "bsr_spmm" in n)
+        print(f"  profile forward_train (with grad): device busy {busy:.3f} of {wall:.3f} ms "
+              f"wall; K2 own time {k2_fwd:.3f} ms in {n_k2} launches")
+    del params, opt, tb
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, tokens_per_s=tps, peak_gb=peak, launches=launches["bsr_spmm"],
+                loss_first=losses[0], loss_last=losses[-1], eval_before=eval_before,
+                eval_after=eval_after, adamw_rel=adamw_worst, k2_forward_ms=k2_fwd,
+                **{f"{n}_ms": v for n, v in ph_ms.items()})
+
+
+def phase_train_cut(args, torch, kops, m, dev):
+    """Phase 13c: a 2-layer cut at full width in float32: one step's
+    gradients with the FFN on cuda (K2 forward, the reference's plain
+    backward) and fixed_block (bsr_ops.dds on the card: K2 forward, the
+    family's backward on K2 and K3) against grouped."""
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train import step as tstep
+
+    ttr = m["ttr"]
+    cfg = train_model(m, 2, "float32")
+    pats = list(m["tlayers"].sable_patterns(cfg).values())
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    params = ttr.init_params(cfg, gen, device=dev)
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (CUT_B, CUT_S + 1), generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    print(f"phase 13c: 2 layers at full width in float32 (TF32 off), B={CUT_B} S={CUT_S}: one "
+          f"step's gradients by FFN strategy against grouped, max|err|/max|ref| by leaf, "
+          f"tol {GRAD_TOL['torch.float32']:g}")
+    grads, counts = {}, {}
+    for strategy in ("grouped", "cuda", "fixed_block"):
+        pin_strategy(m, pats, strategy, dev)
+        before = dict(kops.launches)
+        logits, aux = ttr.forward_train(params, cfg, batch)
+        loss = tstep.cross_entropy(logits, batch["labels"]) + aux
+        grads[strategy] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        counts[strategy] = {k: kops.launches[k] - before[k] for k in ("bsr_spmm", "bsr_sdd")}
+        del logits, aux, loss
+    out = {}
+    for strategy in ("cuda", "fixed_block"):
+        rels = [rel_err(g, w)[1] for g, w in zip(grads[strategy], grads["grouped"])]
+        worst = max(rels)
+        ok = worst <= GRAD_TOL["torch.float32"] and all(
+            bool(torch.isfinite(g).all()) for g in grads[strategy])
+        print(f"  {strategy} vs grouped: worst leaf {worst:.3e} over {len(rels)} leaves "
+              f"{'ok' if ok else 'FAIL'}; launches {counts[strategy]}")
+        if not ok or counts[strategy]["bsr_spmm"] == 0:
+            raise AssertionError(f"2-layer float32 gradients through {strategy}: {worst:.3e}")
+        out[strategy] = worst
+    if counts["fixed_block"]["bsr_sdd"] == 0:
+        raise AssertionError("fixed_block's backward never launched K3")
+    del params, grads, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cli(torch):
+    """Phase 13d: the training CLI on the card in a subprocess, then
+    --resume."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(prefix="repro-train-cli-") as tmp:
+        env["REPRO_CACHE_DIR"] = tmp  # its plans in a cache of its own
+        ckpt = str(Path(tmp) / "ckpt")
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3-8b",
+                "--sable", "--reduced", "--ckpt-dir", ckpt, "--log-every", "2"]
+        for extra in (["--steps", "4"], ["--steps", "2", "--resume"]):
+            t0 = time.perf_counter()
+            r = subprocess.run(base + extra, capture_output=True, text=True, timeout=300,
+                               env=env, cwd=str(ROOT))
+            lines = (r.stdout.strip().splitlines() or [""])
+            print(f"  phase 13d: {' '.join(base[1:] + extra)}: rc={r.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s; {' | '.join(lines[-3:])}")
+            if r.returncode != 0:
+                print(r.stderr[-3000:], file=sys.stderr)
+                raise AssertionError(f"the training CLI failed: rc {r.returncode}")
+        if "resumed=True at step 4" not in r.stdout or "@ step 6" not in r.stdout:
+            raise AssertionError("the training CLI did not resume at step 4")
+
+
+def phase_train(args, torch, kops, kref, dev):
+    """Phase 13: training. Returns the kernels line's extra keys by kernel."""
+    t_start = time.perf_counter()
+    short = {"bfloat16": "bf16", "float32": "f32"}
+    keys = {"bsr_spmm": {}, "bsr_sdd": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        recs, launches = phase_train_moe(args, torch, kops, kref, dtype)
+        dn = short[str(dtype)[6:]]
+        for name, rec in recs.items():
+            kname = "bsr_sdd" if name == "bwd_ds" else "bsr_spmm"
+            for k, v in rec.items():
+                keys[kname][f"train_{name}_{dn}_{k}"] = v
+            keys[kname][f"train_{name}_{dn}_launches"] = launches["by_table"][name]
+        keys["bsr_spmm"][f"train_moe_{dn}_launches"] = launches["bsr_spmm"]
+        keys["bsr_sdd"][f"train_moe_{dn}_launches"] = launches["bsr_sdd"]
+        torch.cuda.empty_cache()
+    m = serve_modules()
+    with temp_plans(m):
+        rec = phase_train_llama(args, torch, kops, m, dev)
+    keys["bsr_spmm"].update({f"train_step_{k}": v for k, v in rec.items()})
+    with temp_plans(m):
+        worst = phase_train_cut(args, torch, kops, m, dev)
+    keys["bsr_spmm"].update({f"train_cut_{k}_rel": v for k, v in worst.items()})
+    phase_train_cli(torch)
+    print(f"phase 13: {time.perf_counter() - t_start:.1f} s")
+    return keys
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2900,6 +3608,9 @@ def main() -> int:
 
     # -- phase 12 ----------------------------------------------------------
     mamba_keys = phase_mamba_serve(args, torch, kops, kref, dev)
+
+    # -- phase 13 ----------------------------------------------------------
+    train_keys = phase_train(args, torch, kops, kref, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -2938,6 +3649,7 @@ def main() -> int:
             extra.update(cb_keys)
         extra.update(moe_serve_keys.get(kname, {}))  # phase 11: llama4-scout, DeepSeek-V2
         extra.update(mamba_keys.get(kname, {}))  # phase 12: jamba
+        extra.update(train_keys.get(kname, {}))  # phase 13: the backward's tables, training
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

@@ -10,6 +10,11 @@ compute the same layer, or its whole ``init_params`` tree (nested dicts and
 lists, stacked ``(repeat, ...)`` group leaves, SABLE tiles ``(repeat, nt,
 tm, tk)``), so that both packages compute the same model. It is generic:
 every leaf crosses under its own key, whatever the layer kind.
+
+``opt_state_from_arrays`` carries the reference's AdamW state across
+(``adamw_init``/``adamw_update``'s ``{"mu", "nu", "count"}``) dtype by
+dtype: each moment in its own dtype (float32, or bfloat16 under
+``state_dtype``), ``count`` an int32 0-d tensor.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 from .core.vbr import VBR
 from .device import resolve_device
 
-__all__ = ["params_from_arrays", "vbr_from_arrays"]
+__all__ = ["opt_state_from_arrays", "params_from_arrays", "vbr_from_arrays"]
 
 
 def vbr_from_arrays(shape, rpntr, cpntr, bindx, bpntrb, bpntre, indx, val) -> VBR:
@@ -59,3 +64,30 @@ def params_from_arrays(tree, device=None, dtype=torch.float32):
         return torch.as_tensor(np.array(t, dtype=np.float32), device=dev).to(dtype)
 
     return conv(tree)
+
+
+def _leaf_dtype(a) -> torch.dtype:
+    """The torch dtype of a numpy or JAX array, by its name."""
+    name = np.asarray(a).dtype.name
+    if not hasattr(torch, name):
+        raise TypeError(f"no torch dtype for {name!r}")
+    return getattr(torch, name)
+
+
+def opt_state_from_arrays(state, device=None) -> dict:
+    """The port's AdamW state from the reference's ``{"mu", "nu",
+    "count"}`` tree, each leaf in its own dtype on ``device``."""
+    dev = resolve_device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        dtype = _leaf_dtype(t)
+        if dtype.is_floating_point:  # through float32, which holds bfloat16 exactly
+            return torch.as_tensor(np.array(t, dtype=np.float32), device=dev).to(dtype)
+        return torch.as_tensor(np.array(t), device=dev)
+
+    return {"mu": conv(state["mu"]), "nu": conv(state["nu"]),
+            "count": conv(state["count"]).to(torch.int32)}

@@ -1,9 +1,10 @@
-"""Model assembly: groups of stacked blocks -> LM forward passes for serving
-(port of the inference half of ``repro.models.transformer``).
+"""Model assembly: groups of stacked blocks -> LM forward passes (port of
+``repro.models.transformer``).
 
 Public entry points (functions of (params, cfg, inputs)):
 
   init_params(cfg, generator, device)           -> params dict
+  forward_train(params, cfg, batch)             -> (logits, aux_loss)
   init_cache(cfg, batch, s_max, dtype, device)  -> cache list
   prefill(params, cfg, tokens, cache)           -> (logits, cache)
   prefill_chunk(params, cfg, tokens, cache, start)
@@ -21,9 +22,19 @@ in "decode" mode, as the reference threads the mode. So every caller reads
 the new state from the cache it passed in (the scheduler's lane step and
 paged writes among them).
 
+``forward_train`` runs the groups in a third mode, "train", with no cache
+(a Mamba sub-layer writes no state). ``cfg.remat`` wraps each block as the
+reference wraps its scan body: "full" in non-reentrant
+``torch.utils.checkpoint`` (every activation recomputed in the backward),
+"dots" in a selective-checkpoint policy that saves the outputs of plain
+matmuls (``mm``/``addmm``, no batch dims), the counterpart of
+``dots_with_no_batch_dims_saveable``. Values are the same either way: only
+memory differs. Gradients reach the stacked ``(repeat, ...)`` leaves through
+the per-layer views.
+
 Ported: the GQA, MLA and Mamba-2 mixers, the dense FFN (dense or SABLE
-block-sparse) and the MoE FFN. Cross-attention, ``encode`` and
-``forward_train`` raise ``NotImplementedError`` until their slices.
+block-sparse) and the MoE FFN. Cross-attention and ``encode`` raise
+``NotImplementedError`` until the encoder-decoder slice.
 """
 from __future__ import annotations
 
@@ -110,10 +121,12 @@ def _copy_layer(stacked, tree, i: int) -> None:
 
 
 def _stack_one(tree):
-    """A (1, ...) view of each leaf of ``tree``."""
+    """Each leaf of ``tree`` as a (1, ...) tensor on the draw's memory, held
+    once. Detached, it is no autograd view of the draw: training makes it a
+    leaf of its own that takes ``requires_grad_()`` and in-place updates."""
     if isinstance(tree, dict):
         return {k: _stack_one(v) for k, v in tree.items()}
-    return tree.unsqueeze(0)
+    return tree.unsqueeze(0).detach()
 
 
 def _group_init(gen, cfg, g: GroupSpec, dtype, dev):
@@ -214,18 +227,50 @@ def _unstack(tree, n: int) -> list:
     return list(tree.unbind(0))
 
 
+# plain matmuls, no batch dims: what "dots" keeps for the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``'s checkpoint, as the reference wraps its
+    scan body; the function itself where nothing is recomputed."""
+    if cfg.remat not in ("full", "dots") or not torch.is_grad_enabled():
+        return fn
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _run_groups(cfg: ModelConfig, groups, group_params, x, positions, caches, cache_pos,
                 causal, mode: str):
     """Run each group's layers in order over views of its stacked params
-    (and cache, written in place); ``mode`` is "prefill" or "decode".
-    Returns (x, caches, aux)."""
+    (and cache, written in place); ``mode`` is "prefill", "decode" or
+    "train" (no cache; each block under ``cfg.remat``). Returns (x, caches,
+    aux)."""
     aux_total = 0.0
     for gi, g in enumerate(groups):
         layers = _unstack(group_params[gi], g.repeat)
         layer_caches = _unstack(caches[gi] if caches is not None else None, g.repeat)
+
+        def block(p_slice, x, c_slice=None, specs=g.layers):
+            return _block_apply(cfg, specs, p_slice, x, positions, c_slice, cache_pos, causal,
+                                mode)
+
+        if mode == "train":
+            block = _remat(cfg, block)
         for p_slice, c_slice in zip(layers, layer_caches):
-            x, a = _block_apply(cfg, g.layers, p_slice, x, positions, c_slice, cache_pos,
-                                causal, mode)
+            x, a = block(p_slice, x, c_slice)
             aux_total = aux_total + a
     return x, caches, aux_total
 
@@ -309,10 +354,18 @@ def encode(params, cfg: ModelConfig, src_embeds):
 
 
 def forward_train(params, cfg: ModelConfig, batch: dict):
-    raise NotImplementedError(
-        "forward_train is not ported yet; it comes with the training slice (the "
-        "backward passes of the sparse families)"
-    )
+    """Teacher-forced forward. batch: {"tokens": (B, S)} integer tensor on
+    the params' device. Returns (logits (B, S, V) in the compute dtype, aux
+    0-d float32: the MoE layers' load-balance loss, 0 without them)."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, _, aux = _run_groups(cfg, cfg.groups, params["groups"], x, positions, None, None,
+                            cfg.causal, "train")
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(params, cfg, x), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, enc_out=None):

@@ -24,20 +24,9 @@ import torch
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import decode_step, init_cache, prefill
+from ..tree import tree_paths
 
 __all__ = ["ServeEngine"]
-
-
-def _leaves(tree, path=()):
-    """(key path, tensor) of every leaf of a dict/list params tree."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, path + (i,))
-    else:
-        yield path, tree
 
 
 def _has_sparse_ffn(params, patterns) -> bool:
@@ -47,9 +36,9 @@ def _has_sparse_ffn(params, patterns) -> bool:
     engines thus skip the sparse-plan warmup even when cfg.sable is set."""
     want = {(p.n_tiles, p.tm, p.tk) for p in patterns.values()}
     return any(
-        path and path[-1] in ("w1", "w2", "w3")
+        path.rsplit("/", 1)[-1] in ("w1", "w2", "w3")
         and tuple(getattr(leaf, "shape", ())[-3:]) in want
-        for path, leaf in _leaves(params)
+        for path, leaf in tree_paths(params)
     )
 
 

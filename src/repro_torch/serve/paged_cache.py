@@ -53,6 +53,7 @@ import torch
 from ..device import on_device, resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import init_cache
+from ..tree import flatten, unflatten
 
 __all__ = ["PageAllocator", "PagedKVCache", "PagesExhausted"]
 
@@ -108,33 +109,6 @@ class PageAllocator:
         assert len(self._free) + len(self._held) == self.num_pages
         assert set(self._free) | self._held == set(range(self.num_pages))
         assert not (set(self._free) & self._held)
-
-
-def flatten(tree):
-    """(leaves, spec) of a cache tree in JAX's order: lists and tuples in
-    order, dict keys sorted. ``unflatten(spec, leaves)`` rebuilds it."""
-    leaves = []
-    return leaves, _flatten_into(tree, leaves)
-
-
-def _flatten_into(t, leaves: list):
-    # a module-level recursion: a nested recursive function would form a
-    # reference cycle holding ``leaves`` (a step's 0.6 GB batch view at full
-    # width) until the cyclic garbage collector runs
-    if isinstance(t, dict):
-        return {k: _flatten_into(t[k], leaves) for k in sorted(t)}
-    if isinstance(t, (list, tuple)):
-        return type(t)(_flatten_into(v, leaves) for v in t)
-    leaves.append(t)
-    return len(leaves) - 1
-
-
-def unflatten(spec, leaves):
-    if isinstance(spec, dict):
-        return {k: unflatten(v, leaves) for k, v in spec.items()}
-    if isinstance(spec, (list, tuple)):
-        return type(spec)(unflatten(v, leaves) for v in spec)
-    return leaves[spec]
 
 
 class PagedKVCache:

@@ -18,10 +18,14 @@ Compute strategies mirror ``core.staging`` backends:
 (on the CPU only ``grouped`` is a candidate) and persists the winner through
 ``core.cache`` under the device segment ``cuda`` or ``torchcpu``, keyed by
 ``pattern_hash``, which is byte-identical to the reference's
-``blockpattern-v2`` hash. Only the forward is ported: the reference's
-``custom_vjp`` around the Pallas call comes with the training slice, and an
-input that requires a gradient raises. ``mesh=`` and ``shard=`` raise until
-the sharding slice.
+``blockpattern-v2`` hash.
+
+Every strategy takes gradients. ``cuda`` is an autograd Function whose
+forward is K2 and whose backward is the reference's ``_pallas_matmul_bwd``,
+a gather and two einsums in plain PyTorch (the reference, too, computes it
+outside any kernel); ``grouped`` and ``fixed_block`` differentiate through
+the ``bsr_ops`` family, ``dia_hybrid`` through its einsum and ``grouped``.
+``mesh=`` and ``shard=`` raise until the sharding slice.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import hashlib
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..device import resolve_device
 from ..kernels import bsr_ops
@@ -79,6 +84,14 @@ class BlockPattern:
     def density(self) -> float:
         total = (self.d_in // self.tm) * (self.d_out // self.tk)
         return self.n_tiles / max(total, 1)
+
+    def row_gather(self) -> np.ndarray:  # (nt, tm) input-dim indices
+        r = np.asarray(self.rows)[:, None] * self.tm + np.arange(self.tm)[None, :]
+        return r.astype(np.int32)
+
+    def col_gather(self) -> np.ndarray:  # (nt, tk) output-dim indices
+        c = np.asarray(self.cols)[:, None] * self.tk + np.arange(self.tk)[None, :]
+        return c.astype(np.int32)
 
 
 def random_pattern(
@@ -151,7 +164,8 @@ class _Tables:
     tile-cols become K2's row tiles): ``order`` (the lexsort by (col, row)
     that gathers the tiles), ``row_ids`` = pattern cols, ``col_ids`` =
     pattern rows, ``row_ptr``, and K2's float32 split of the table for each
-    column count."""
+    column count; and the input and output gathers (nt, tm) and (nt, tk) of
+    the ``cuda`` strategy's backward."""
 
     def __init__(self, pattern: BlockPattern, dev: torch.device):
         nt, tm, tk = pattern.n_tiles, pattern.tm, pattern.tk
@@ -166,6 +180,8 @@ class _Tables:
         self.row_ptr = kops.row_ptr_from_ids(self.row_ids, pattern.d_out // tk)
         self._k2_tile = (tk, tm)  # K2's (tm, tk): the transposed tiles
         self._schedules = {}
+        self.row_gather = torch.as_tensor(pattern.row_gather(), dtype=torch.long, device=dev)
+        self.col_gather = torch.as_tensor(pattern.col_gather(), dtype=torch.long, device=dev)
 
     def schedule(self, n: int, dtype: torch.dtype):
         """K2's split of the table for ``n`` columns in ``dtype`` on the
@@ -184,10 +200,16 @@ _TABLES: dict = {}
 
 
 def _tables(pattern: BlockPattern, dev: torch.device) -> _Tables:
+    """The pattern's tables on ``dev``, built at the first call. Built
+    outside inference mode whatever the caller's mode (a server's first
+    forward runs under ``torch.inference_mode()``): the family's autograd
+    Functions save the skeleton's index tensors for the backward, which an
+    inference tensor cannot be."""
     key = (pattern_hash(pattern), str(dev))
     t = _TABLES.get(key)
     if t is None:
-        t = _TABLES[key] = _Tables(pattern, dev)
+        with torch.inference_mode(False):
+            t = _TABLES[key] = _Tables(pattern, dev)
     return t
 
 
@@ -208,6 +230,39 @@ def sparse_matmul(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPattern):
     return y.reshape(*lead, pattern.d_out)
 
 
+class _CudaMatmulFn(torch.autograd.Function):
+    """K2 forward; the reference's ``_pallas_matmul_bwd`` backward. The
+    pattern's tables and gathers come from the ``_tables`` cache in both
+    directions: only x and the tiles are saved."""
+
+    @staticmethod
+    def forward(ctx, pattern, x2, tiles):
+        ctx.pattern = pattern
+        ctx.save_for_backward(x2, tiles)
+        t = _tables(pattern, x2.device)
+        xt = x2.T.contiguous()  # (d_in, T)
+        yt = kops.bsr_spmm(
+            _transposed_tiles(tiles, t.order), t.row_ids, t.col_ids, xt, m_pad=pattern.d_out,
+            row_ptr=t.row_ptr, schedule=t.schedule(xt.shape[1], xt.dtype), device=x2.device,
+        )
+        return yt.T
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x2, tiles = ctx.saved_tensors
+        t = _tables(ctx.pattern, x2.device)
+        rg, cg = t.row_gather, t.col_gather
+        gg = g[:, cg]  # (T, nt, tk)
+        dx = dtiles = None
+        if ctx.needs_input_grad[1]:
+            part = torch.einsum("bnk,nmk->bnm", gg, tiles)  # (T, nt, tm)
+            dx = torch.zeros_like(x2).index_add_(1, rg.reshape(-1), part.reshape(len(x2), -1))
+        if ctx.needs_input_grad[2]:
+            dtiles = torch.einsum("bnm,bnk->nmk", x2[:, rg], gg).to(tiles.dtype)
+        return None, dx, dtiles
+
+
 def sparse_matmul_cuda(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPattern):
     """The card's hot path: K2 (``bsr_spmm``) over the pattern, x rows =
     tokens. K2 computes W^T x^T: x^T (d_in, T) is its dense operand and the
@@ -217,17 +272,11 @@ def sparse_matmul_cuda(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPatte
     reference does. The result is a view of K2's (d_out, T) output, not
     row-major: the next call's x^T is then free; a caller that needs
     row-major strides makes it contiguous. On the CPU, K2's plain version
-    runs."""
-    bsr_ops._forward_only("sparse_matmul_cuda", x, tiles)
-    t = _tables(pattern, x.device)
+    runs. Its gradient is the reference's (``_pallas_matmul_bwd``): a gather
+    and two einsums."""
     lead = x.shape[:-1]
-    xt = x.reshape(-1, pattern.d_in).T.contiguous()  # (d_in, T)
-    yt = kops.bsr_spmm(
-        _transposed_tiles(tiles, t.order), t.row_ids, t.col_ids, xt, m_pad=pattern.d_out,
-        row_ptr=t.row_ptr, schedule=t.schedule(xt.shape[1], xt.dtype),
-        device=x.device,
-    )
-    return yt.T.reshape(*lead, pattern.d_out)
+    y = _CudaMatmulFn.apply(pattern, x.reshape(-1, pattern.d_in), tiles)
+    return y.reshape(*lead, pattern.d_out)
 
 
 def _transposed_tiles(tiles: torch.Tensor, order: torch.Tensor) -> torch.Tensor:

@@ -321,16 +321,42 @@ def test_dsd_zeroes_empty_block_rows(backend):
 
 @pytest.mark.parametrize("op", ["dsd", "dds", "sdd"])
 def test_requires_grad_raises(op):
-    """The backward passes are not ported yet: autograd must not run."""
+    """Inputs that require grad get first-order gradients through the
+    family's own backward passes (held here against the dense products:
+    d(S x)/dx = S^T g, d/dS = g x^T at S's blocks, and so on), and a
+    gradient of that gradient raises: nothing needs a double backward, so
+    the Functions are once-differentiable."""
     rng = np.random.default_rng(0)
-    mask = np.ones((2, 2), bool)
-    data, n_slots, dense = _op_inputs(op, rng, mask, 2, 2, pad=0)
-    sp = tbc.BlockMatrix.from_mask(mask, (2, 2), data=data, device=CPU)
+    mask = np.array([[1, 0], [1, 1]], bool)
+    data, n_slots, dense = _op_inputs(op, rng, mask, 2, 2, pad=1)
+    sp = tbc.BlockMatrix.from_mask(mask, (2, 2), data=data, nnz_max=n_slots, device=CPU)
+    sp = tbc.BlockMatrix(sp.shape, sp.block, sp.data.clone().requires_grad_(), sp.row_indices,
+                         sp.column_indices, sp.offsets)
     inputs = [torch.as_tensor(d).requires_grad_() for d in dense]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _run_op(op, tops, sp, inputs)
-    with torch.no_grad():
-        _run_op(op, tops, sp, inputs)
+    out = _run_op(op, tops, sp, inputs)
+    g = torch.as_tensor(rng.standard_normal(tuple(out.shape)).astype(np.float32))
+    gc = g.clone().requires_grad_()  # a cotangent the gradients depend on
+    grads = torch.autograd.grad(out, ([] if op == "sdd" else [sp.data]) + inputs, gc,
+                                create_graph=True)
+    S, ms = sp.to_dense().detach().numpy(), mask.repeat(2, 0).repeat(2, 1)
+    gn = g.numpy()
+    if op == "dsd":
+        want = [gn @ dense[0].T * ms, S.T @ gn]
+    elif op == "dds":
+        want = [dense[0].T @ gn * ms, gn @ S.T]
+    else:
+        G = tbc.BlockMatrix(sp.shape, sp.block, g, sp.row_indices, sp.column_indices,
+                            sp.offsets).to_dense().numpy()
+        want = [G @ dense[1].T, dense[0].T @ G]
+    if op != "sdd":  # the sparse operand's gradient, as a dense matrix at its blocks
+        dS = tbc.BlockMatrix(sp.shape, sp.block, grads[0], sp.row_indices, sp.column_indices,
+                             sp.offsets)
+        grads = [dS.to_dense()] + list(grads[1:])
+        assert not grads[0].detach().numpy()[~ms].any()
+    for got, w in zip(grads, want):
+        np.testing.assert_allclose(got.detach().numpy(), w, **TOL)
+    with pytest.raises(RuntimeError, match="once_differentiable|twice"):
+        grads[-1].sum().backward()
 
 
 def test_sdd_block_view_and_input_checks():

@@ -296,14 +296,12 @@ def _shapes(tree):
 
 
 def test_left_out_parts_raise():
-    """Cross-attention, encoders and training are later slices."""
+    """Cross-attention and encoders are a later slice."""
     ds = tconfigs.get_config("deepseek-v2-236b", reduced=True)
     gen = torch.Generator()
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         tattn.cross_init(gen, ds)
     cfg = _gqa_cfg()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttr.forward_train({}, cfg, {})
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         ttr.encode({}, cfg, None)
     with pytest.raises(NotImplementedError, match="encoder-decoder"):

@@ -250,16 +250,27 @@ def test_moe_init_and_capacity():
 
 
 def test_dropless_requires_grad_raises():
-    """The dropless path runs the forward-only family: a param that needs a
-    gradient raises instead of differentiating the kernels' glue."""
-    cfg = _small(tconfig)
-    p = params_from_arrays(_params(cfg, seed=0), device=CPU)
-    p["w1"].requires_grad_()
-    x = torch.randn(2, 12, 16, generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tmoe.moe_apply(p, x, cfg)
-    with torch.no_grad():
-        tmoe.moe_apply(p, x, cfg)
+    """The dropless path takes gradients through the family's backward
+    passes: every param's and x's gradient of sum(y) + aux equals the
+    capacity path's, where nothing drops (capacity_factor 16); a gradient of
+    a gradient raises (the family's Functions are once-differentiable)."""
+    grads = {}
+    x0 = torch.randn(2, 12, 16, generator=torch.Generator().manual_seed(0))
+    for dropless in (True, False):
+        cfg = _small(tconfig, dropless=dropless)
+        p = params_from_arrays(_params(cfg, seed=0), device=CPU)
+        for v in p.values():
+            v.requires_grad_()
+        x = x0.clone().requires_grad_()
+        y, aux = tmoe.moe_apply(p, x, cfg)
+        leaves = [x] + [p[k] for k in sorted(p)]
+        cot = torch.ones_like(y).requires_grad_()  # a cotangent the gradients depend on
+        grads[dropless] = torch.autograd.grad((y * cot).sum() + aux, leaves,
+                                              create_graph=dropless)
+    for got, want in zip(grads[True], grads[False]):
+        np.testing.assert_allclose(got.detach().numpy(), want.numpy(), **TOL)
+    with pytest.raises(RuntimeError, match="once_differentiable|twice"):
+        grads[True][0].sum().backward()
 
 
 @requires_cuda
