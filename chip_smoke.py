@@ -239,6 +239,34 @@ Phases, each printing its lines:
             gradients with the FFN on cuda and on fixed_block (the family's
             backward on K2 and K3) against grouped, within 1e-4; (d) the
             training CLI in a subprocess, then --resume.
+14. encdec  drives the port's encoder-decoder path, seamless-m4t-large-v2
+            (24 encoder + 24 decoder layers, d_model 1024, 16 heads, d_ff
+            8192 gelu, vocab 256 206, tied), on which no kernel lies (its
+            attention and FFNs are plain matmuls, in the reference too):
+            (a) the whole model in bfloat16 (2.74 GB, from --seed) through
+            ServeEngine.generate, B=8, src_embeds of 512 frames, 32-token
+            prompts, 64 greedy new tokens: encode ms, prefill ms, decode ms
+            a step beside its bytes bound, tokens/s, peak memory, and
+            torch.profiler breakdowns of encode, the prefill and one decode
+            step (self-attention, cross-attention, FFN, head, busy share);
+            (b) float32 (TF32 off) cut to 2 encoder + 2 decoder layers:
+            generate's greedy tokens equal a manual loop of prefill and
+            decode_step whose cross K/V is recomputed from encode's output
+            before every step, the last prefill logits match forward_train's
+            within 1e-5 of max|logits|, each step's within 1e-4; (c)
+            ServeEngine.serve with 8 requests, each with its own src_embeds,
+            through the explicit fallback: one warning, paged False, each
+            request's tokens equal generate on it alone; (d) the whole model
+            trained 6 steps (float32 params and AdamW, 16.44 GB; bfloat16
+            compute, remat "dots", bfloat16 gradients, AdamW's default lr)
+            on SyntheticDataset (8 x 512 target tokens over the first 4096
+            ids of the vocabulary, 128 frames): ms a step,
+            tokens/s, peak memory, make_eval_step's CE on a held-out batch
+            that must fall by SM_EVAL_MARGIN, a checkpoint round trip bit
+            for bit (save and restore s), one step by phase and under
+            torch.profiler, and the same step with remat "none"; (e) the
+            training CLI on the reduced config in a subprocess, then
+            --resume.
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -3409,32 +3437,6 @@ def phase_train_cut(args, torch, kops, m, dev):
     return out
 
 
-def phase_train_cli(torch):
-    """Phase 13d: the training CLI on the card in a subprocess, then
-    --resume."""
-    import os
-    import tempfile
-
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with tempfile.TemporaryDirectory(prefix="repro-train-cli-") as tmp:
-        env["REPRO_CACHE_DIR"] = tmp  # its plans in a cache of its own
-        ckpt = str(Path(tmp) / "ckpt")
-        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3-8b",
-                "--sable", "--reduced", "--ckpt-dir", ckpt, "--log-every", "2"]
-        for extra in (["--steps", "4"], ["--steps", "2", "--resume"]):
-            t0 = time.perf_counter()
-            r = subprocess.run(base + extra, capture_output=True, text=True, timeout=300,
-                               env=env, cwd=str(ROOT))
-            lines = (r.stdout.strip().splitlines() or [""])
-            print(f"  phase 13d: {' '.join(base[1:] + extra)}: rc={r.returncode} in "
-                  f"{time.perf_counter() - t0:.1f} s; {' | '.join(lines[-3:])}")
-            if r.returncode != 0:
-                print(r.stderr[-3000:], file=sys.stderr)
-                raise AssertionError(f"the training CLI failed: rc {r.returncode}")
-        if "resumed=True at step 4" not in r.stdout or "@ step 6" not in r.stdout:
-            raise AssertionError("the training CLI did not resume at step 4")
-
-
 def phase_train(args, torch, kops, kref, dev):
     """Phase 13: training. Returns the kernels line's extra keys by kernel."""
     t_start = time.perf_counter()
@@ -3458,9 +3460,442 @@ def phase_train(args, torch, kops, kref, dev):
     with temp_plans(m):
         worst = phase_train_cut(args, torch, kops, m, dev)
     keys["bsr_spmm"].update({f"train_cut_{k}_rel": v for k, v in worst.items()})
-    phase_train_cli(torch)
+    print("phase 13d: the training CLI, then --resume")
+    train_cli("phase 13d", ["--arch", "llama3-8b", "--sable", "--reduced"])
     print(f"phase 13: {time.perf_counter() - t_start:.1f} s")
     return keys
+
+
+# ---------------------------------------------------------------------- #
+# phase 14: encoder-decoder (seamless-m4t-large-v2)
+# ---------------------------------------------------------------------- #
+SM = "seamless-m4t-large-v2"
+SM_B, SM_SRC, SM_P, SM_G = 8, 512, 32, 64  # 14a: prompts, frames, prompt tokens, new tokens
+SM_CUT, SM_CHECK_B, SM_CHECK_SRC, SM_CHECK_P, SM_CHECK_G = 2, 2, 256, 32, 8  # 14b
+# 14b: the last prefill logits against forward_train's, max|err| / max|logits|
+SM_PREFILL_TOL = 1e-5
+SM_REQUESTS, SM_PROMPTS, SM_FRAMES, SM_GENS = 8, (16, 64), (128, 512), (8, 32)  # 14c
+SM_TRAIN_B, SM_TRAIN_S, SM_TRAIN_STEPS = 8, 512, 6  # 14d; AdamW at its default lr
+# 14d's data: SyntheticDataset's ramps over the first SM_DATA_VOCAB token ids.
+# Over the whole vocabulary the tied head starts 0.22 nats above uniform and
+# 6 steps at any lr move a held-out batch's CE by noise alone (+-0.1); a
+# vocabulary the model can learn to favour gives the gate a signal
+SM_DATA_VOCAB = 4096
+# 14d's eval gate, as 13b's: the CE on the held-out batch at data step
+# EVAL_STEP must fall by SM_EVAL_MARGIN over the steps
+SM_EVAL_MARGIN = 0.05
+
+
+def sm_model(m, dtype=None, cut=None):
+    """seamless-m4t-large-v2 at its published widths: params in ``dtype``
+    (both dtypes for "float32"; default: the config's), encoder and decoder
+    cut to ``cut`` layers each where given."""
+    cfg = m["get_config"](SM)
+    if dtype == "float32":
+        cfg = replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    elif dtype is not None:
+        cfg = replace(cfg, param_dtype=dtype)
+    if cut is not None:
+        cfg = replace(cfg, groups=(replace(cfg.groups[0], repeat=cut),),
+                      enc_groups=(replace(cfg.enc_groups[0], repeat=cut),))
+    return cfg
+
+
+def sm_counts(params) -> str:
+    """The params by part: encoder, decoder, the tied embedding and head."""
+    from repro_torch.tree import tree_leaves
+
+    parts = {"encoder": [params["enc_groups"], params["enc_final_norm"],
+                         params.get("frontend_proj")],
+             "decoder": [params["groups"], params["final_norm"]],
+             "embedding and tied head": [params["embed"], params.get("lm_head")]}
+    n = {k: sum(t.numel() for t in tree_leaves([x for x in v if x is not None]))
+         for k, v in parts.items()}
+    total = sum(n.values())
+    es = params["embed"].element_size()
+    return (f"total {total / 1e9:.4f} G (" + ", ".join(f"{k} {v / 1e9:.4f} G"
+                                                      for k, v in n.items())
+            + f"); {total * es / 1e9:.3f} GB")
+
+
+def sm_targets(m):
+    """The enc-dec model's parts, as (owner, attribute, label) ranges."""
+    ttr = m["ttr"]
+    return [(ttr, "gqa_apply", "self-attention"), (ttr, "cross_kv", "cross-attention"),
+            (ttr, "cross_apply", "cross-attention"), (ttr, "ffn_apply", "FFN"),
+            (ttr, "_unembed", "head (final norm, tied embedding)"), (ttr, "_embed", "embedding")]
+
+
+def sm_breakdown(torch, m, label, fn):
+    """One call of ``fn`` under torch.profiler with the parts as ranges:
+    device ms by part, the rest (layer norms, residual adds), the device's
+    busy share of the wall and the top kernels."""
+    got = profile_ranges(torch, sm_targets(m), fn)
+    if got is None:
+        print(f"  profile {label}: device time not measured (the profiler saw none)")
+        return None
+    _, ranges, table, busy, wall_ms = got
+    rest = busy - sum(ranges.values())
+    top = sorted(((row[0], row[2], k) for k, row in table.items()), reverse=True)[:5]
+    print(f"  profile {label}: device busy {busy:.3f} of {wall_ms:.3f} ms wall (share "
+          f"{busy / wall_ms:.3f}); ms: " + "; ".join(f"{k} {v:.3f}" for k, v in ranges.items())
+          + f"; rest (layer norms, residual adds) {rest:.3f}; top kernels: "
+          + "; ".join(f"{k[:50]} x{n} {own:.3f}" for own, n, k in top))
+    return dict(busy_ms=busy, wall_ms=wall_ms, **ranges)
+
+
+def sm_decode_bytes(cfg, params, batch, enc_len, max_len) -> dict:
+    """Bytes a decode step must move: every decoder weight it reads (the
+    cross-attention's wk and wv are not: their keys and values are cached),
+    the tied embedding as the head, the cached cross K/V, and the
+    self-attention KV over max_len positions (the path attends over the
+    whole cache); logits and the rest are small beside them."""
+    from repro_torch.tree import tree_leaves
+
+    es = params["embed"].element_size()
+    dec = sum(t.numel() for t in tree_leaves([params["groups"], params["final_norm"]]))
+    cross = params["groups"][0]["sub0"]["cross"]
+    unread = cross["wk"].numel() + cross["wv"].numel()
+    kv = cfg.n_kv_heads * cfg.head_dim
+    layers = sum(g.repeat for g in cfg.groups)
+    out = dict(weights=(dec - unread) * es, head=params["embed"].numel() * es,
+               cross_kv=2 * layers * batch * enc_len * kv * es,
+               self_kv=2 * layers * batch * max_len * kv * es)
+    out["total"] = sum(out.values())
+    return out
+
+
+def sm_serve(args, torch, kops, m, dev):
+    """14a: the whole model in bfloat16 through ServeEngine.generate.
+    Returns (engine, the src_embeds' generator seed)."""
+    ttr = m["ttr"]
+    cfg = sm_model(m, "bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
+    t0 = time.perf_counter()
+    params = ttr.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    B, S_src, P, G = SM_B, SM_SRC, SM_P, SM_G
+    print(f"phase 14a: serve {SM} whole ({cfg.enc_groups[0].repeat} "
+          f"encoder + {cfg.groups[0].repeat} decoder layers at the published widths: d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff} gelu, vocab {cfg.vocab_size}, "
+          f"tied), bfloat16; params {sm_counts(params)}, drawn in "
+          f"{time.perf_counter() - t0:.2f} s; B={B}, src_embeds {S_src} frames x "
+          f"{cfg.frontend_dim}, prompts of {P} tokens, {G} greedy new tokens")
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    src = torch.randn((B, S_src, cfg.frontend_dim), generator=gen, device=dev)
+    engine = m["ServeEngine"](cfg, params, max_len=P + G, device=dev)
+    engine.generate(prompts, 2, src_embeds=src)  # cuBLAS's first calls at these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    out, stats = engine.generate(prompts, G, src_embeds=src)
+    launches = dict(kops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    new = out[:, P:]
+    step_ms = stats["decode_s"] * 1e3 / (G - 1)
+    nb = sm_decode_bytes(cfg, params, B, S_src, P + G)
+    bound_ms = nb["total"] / HBM_BYTES_PER_S * 1e3
+    print(f"  generate: encode ms={stats['encode_s'] * 1e3:.3f} prefill ms="
+          f"{stats['prefill_s'] * 1e3:.3f} decode ms/step={step_ms:.3f} tokens/s="
+          f"{stats['tokens_per_s']:.1f} (B x new tokens / decode s) peak GB={peak:.3f}; "
+          f"launches of K1-K3 {launches} (no TPU kernel lies on this path)")
+    print(f"  decode step bytes: decoder weights read {nb['weights'] / 1e9:.3f} GB (the cross "
+          f"wk/wv aside), tied head {nb['head'] / 1e9:.3f}, cross K/V {nb['cross_kv'] / 1e9:.3f}, "
+          f"self KV over {P + G} positions {nb['self_kv'] / 1e9:.3f}: {nb['total'] / 1e9:.3f} GB, "
+          f"bound {bound_ms:.4f} ms at 3.35 TB/s against {step_ms:.3f} measured "
+          f"({bound_ms / step_ms:.3f} of it)")
+    if tuple(out.shape) != (B, P + G) or not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+        raise AssertionError(f"{SM} generate: tokens {tuple(out.shape)} out of range")
+    with torch.inference_mode():
+        sm_breakdown(torch, m, f"encode B={B} x {S_src} frames",
+                     lambda: ttr.encode(params, cfg, src))
+        enc_out = ttr.encode(params, cfg, src)
+        cache = ttr.init_cache(cfg, B, P + G, enc_len=S_src, device=dev)
+        sm_breakdown(torch, m, f"prefill B={B} P={P} (cross K/V computed and cached)",
+                     lambda: engine._prefill(prompts, cache, enc_out))
+        tok = out[:, P:P + 1]
+        sm_breakdown(torch, m, f"one decode step at position {P} (cross K/V read)",
+                     lambda: engine._decode(tok, cache, P, 0.0, None))
+        del cache, enc_out
+    torch.cuda.empty_cache()
+    return engine
+
+
+def sm_rewrite_cross(ttr, cfg, params, cache, enc_out) -> float:
+    """Recompute every decoder layer's cross K/V from ``enc_out`` with
+    cross_kv and write it into the cache; returns the largest change,
+    max|new - cached| over max|new|."""
+    worst = 0.0
+    for g, gp, gc in zip(cfg.groups, params["groups"], cache):
+        for j, spec in enumerate(g.layers):
+            if not spec.cross_attn:
+                continue
+            cc = gc[f"sub{j}"]["cross"]
+            for i in range(g.repeat):
+                layer = {k: v[i] for k, v in gp[f"sub{j}"]["cross"].items()}
+                for k, v in ttr.cross_kv(layer, enc_out, cfg).items():
+                    worst = max(worst, rel_err(cc[k][i], v)[1])
+                    cc[k][i].copy_(v)
+    return worst
+
+
+def sm_check(args, torch, m, dev):
+    """14b: float32 (TF32 off), SM_CUT encoder + SM_CUT decoder layers at the
+    published widths: generate's greedy tokens against a manual loop of
+    prefill + decode_step whose cross K/V is recomputed from encode's output
+    before every step; the last prefill logits against forward_train's
+    within SM_PREFILL_TOL, each decode step's against forward_train over the
+    longer sequence within SERVE_TOL."""
+    ttr = m["ttr"]
+    cfg = sm_model(m, "float32", cut=SM_CUT)
+    B, S_src, P, G = SM_CHECK_B, SM_CHECK_SRC, SM_CHECK_P, SM_CHECK_G
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 42)
+    params = ttr.init_params(cfg, gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    src = torch.randn((B, S_src, cfg.frontend_dim), generator=gen, device=dev)
+    engine = m["ServeEngine"](cfg, params, max_len=P + G, device=dev)
+    out, _ = engine.generate(prompts, G, src_embeds=src)
+    with torch.inference_mode():
+        enc_out = ttr.encode(params, cfg, src)
+        cache = ttr.init_cache(cfg, B, P + G, enc_len=S_src, device=dev)
+        lg, cache = ttr.prefill(params, cfg, prompts, cache, enc_out=enc_out)
+        full, _ = ttr.forward_train(params, cfg, {"tokens": prompts, "src_embeds": src})
+        _, rel_pre = rel_err(lg[:, 0], full[:, -1])
+        seq, cached_rel, worst = prompts, 0.0, 0.0
+        for i in range(G):
+            nxt = torch.argmax(lg[:, -1].float(), dim=-1, keepdim=True)
+            seq = torch.cat([seq, nxt], dim=1)
+            if i == G - 1:
+                break
+            cached_rel = max(cached_rel, sm_rewrite_cross(ttr, cfg, params, cache, enc_out))
+            lg, cache = ttr.decode_step(params, cfg, nxt, cache, P + i)
+            full, _ = ttr.forward_train(params, cfg, {"tokens": seq, "src_embeds": src})
+            worst = max(worst, rel_err(lg[:, 0], full[:, -1])[1])
+    same = bool(torch.equal(out, seq))
+    ok = same and rel_pre <= SM_PREFILL_TOL and worst <= SERVE_TOL and cached_rel <= 1e-6 \
+        and bool(torch.isfinite(lg).all())
+    print(f"phase 14b: {SM} cut to {SM_CUT} encoder + {SM_CUT} decoder layers at the published "
+          f"widths, float32 (TF32 off; {sm_counts(params)}), B={B}, {S_src} frames, P={P}, "
+          f"{G} new tokens: last prefill logits vs forward_train rel={rel_pre:.3e} (tol "
+          f"{SM_PREFILL_TOL:g}); cross K/V cached by the prefill vs recomputed from encode's "
+          f"output rel={cached_rel:.3e}; {G - 1} decode steps vs forward_train over the longer "
+          f"sequence rel max {worst:.3e} (tol {SERVE_TOL:g}); generate's greedy tokens equal "
+          f"the manual loop's: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{SM}: the float32 enc-dec check failed")
+    del params, engine, cache, enc_out, lg, full
+    torch.cuda.empty_cache()
+
+
+def sm_serve_fallback(args, torch, m, dev, engine):
+    """14c: ServeEngine.serve on the 14a engine: SM_REQUESTS requests, each
+    with its own src_embeds, through the reference's explicit fallback (one
+    warning, paged False); each request's tokens equal generate on it
+    alone."""
+    import numpy as np
+
+    from repro_torch.serve import engine as tengine
+
+    rng = np.random.default_rng(args.seed + 43)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 43)
+    cfg = engine.cfg
+    reqs = []
+    for i in range(SM_REQUESTS):
+        n, s_src, g = (int(rng.integers(lo, hi + 1)) for lo, hi in (SM_PROMPTS, SM_FRAMES,
+                                                                   SM_GENS))
+        src = torch.randn((s_src, cfg.frontend_dim), generator=gen, device=dev)
+        reqs.append({"prompt": rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                     "max_new_tokens": g, "src_embeds": src, "rid": f"sm{i}"})
+    tengine._ENCDEC_FALLBACK_WARNED = False  # this process's first enc-dec serve()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, sched = engine.serve(reqs)
+        wall = time.perf_counter() - t0
+        engine.serve(reqs[:1])
+    fired = [w for w in caught if issubclass(w.category, UserWarning) and "paged" in str(w.message)]
+    same = 0
+    for r in reqs:
+        alone, _ = engine.generate(torch.as_tensor(r["prompt"][None], device=dev),
+                                   r["max_new_tokens"], src_embeds=r["src_embeds"][None])
+        got = results[r["rid"]]
+        same += bool(np.array_equal(got["tokens"], alone[0].cpu().numpy())
+                     and got["metrics"]["fallback"] == "generate" and got["state"] == "FINISHED")
+    new = sum(r["max_new_tokens"] for r in reqs)
+    ok = len(fired) == 1 and sched is None and engine.warmup_stats["paged"] is False \
+        and same == len(reqs)
+    print(f"phase 14c: serve {len(reqs)} requests ({SM_PROMPTS[0]}-{SM_PROMPTS[1]} prompt "
+          f"tokens, {SM_FRAMES[0]}-{SM_FRAMES[1]} frames, {SM_GENS[0]}-{SM_GENS[1]} new tokens, "
+          f"from --seed) through the enc-dec fallback: {wall:.3f} s, "
+          f"{len(reqs) / wall:.3f} requests/s, {new / wall:.1f} new tokens/s; warnings "
+          f"{len(fired)} over two serve() calls, paged {engine.warmup_stats['paged']}; tokens "
+          f"equal to generate on each request alone: {same}/{len(reqs)} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{SM} serve fallback: {len(fired)} warnings, {same} equal")
+
+
+def sm_train(args, torch, m, dev):
+    """14d: the whole model trained through make_train_step and TrainLoop:
+    float32 params and AdamW, bfloat16 compute, remat "dots", bfloat16
+    gradients, AdamW's default lr (the reference's defaults), on
+    SyntheticDataset with src_embeds at configs.shapes.src_len's length
+    over SM_DATA_VOCAB token ids; the eval gate, a checkpoint round trip,
+    one step by phase and under torch.profiler."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.shapes import Shape, src_len
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.tree import tree_leaves
+
+    ttr = m["ttr"]
+    cfg = sm_model(m)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 44)
+    params = ttr.init_params(cfg, gen, device=dev)
+    opt_cfg = AdamWConfig()
+    opt = adamw_init(params, opt_cfg)
+    state_gb = sum(nbytes(t) for t in tree_leaves(params) + tree_leaves(opt)) / 1e9
+    frames = src_len(cfg, Shape("smoke", SM_TRAIN_S, SM_TRAIN_B, "train"))
+
+    def dataset():
+        return SyntheticDataset(SM_DATA_VOCAB, SM_TRAIN_S, SM_TRAIN_B, seed=args.seed,
+                                frontend_dim=cfg.frontend_dim, src_len=frames)
+
+    ds = dataset()
+    print(f"phase 14d: train {SM} whole at its published widths: params {sm_counts(params)}, "
+          f"params {cfg.param_dtype} and AdamW state {state_gb:.3f} GB, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat!r}, lr {opt_cfg.lr}, gradients cast to "
+          f"bfloat16; SyntheticDataset {SM_TRAIN_B} x {SM_TRAIN_S} target tokens over ids "
+          f"< {SM_DATA_VOCAB} with src_embeds {ds.src_len} frames x {ds.frontend_dim}, "
+          f"{SM_TRAIN_STEPS} steps")
+    step = tstep.make_train_step(cfg, opt_cfg, ParallelConfig())
+    loop = TrainLoop(step, ds)
+    eval_fn = tstep.make_eval_step(cfg)
+    held = ds._batch_at(EVAL_STEP)  # a batch no step trains on
+    eval_before = float(eval_fn(params, held))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, metrics = loop.run(params, opt, SM_TRAIN_STEPS, log_every=1,
+                                    log_fn=lambda s: print(f"  {s}"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    eval_after = float(eval_fn(params, held))
+    losses = loop.losses
+    fall = eval_before - eval_after
+    step_ms = statistics.median(loop.monitor.times[1:]) * 1e3
+    tps = SM_TRAIN_B * SM_TRAIN_S / (step_ms / 1e3)
+    print(f"  losses {['%.4f' % v for v in losses]}; step ms (median of steps 2-"
+          f"{SM_TRAIN_STEPS}, host clock to the loss on the host)={step_ms:.2f} target "
+          f"tokens/s={tps:.1f} (and {SM_TRAIN_B * ds.src_len / (step_ms / 1e3):.1f} frames/s) "
+          f"peak device memory={peak:.3f} GB; grad_norm={float(metrics['grad_norm']):.4f}")
+    print(f"  eval (make_eval_step) on the held-out batch at data step {EVAL_STEP}: "
+          f"{eval_before:.4f} before, {eval_after:.4f} after {SM_TRAIN_STEPS} steps: fell "
+          f"{fall:.4f} (must fall by {SM_EVAL_MARGIN:g}) "
+          f"{'ok' if fall >= SM_EVAL_MARGIN else 'FAIL'}")
+    if not all(math.isfinite(v) for v in losses) or not fall >= SM_EVAL_MARGIN:
+        raise AssertionError(f"{SM}: held-out eval fell {fall:.4f}, under {SM_EVAL_MARGIN:g}; "
+                             f"losses {losses}")
+
+    with tempfile.TemporaryDirectory(prefix="repro-encdec-ckpt-") as tmp:
+        free = shutil.disk_usage(tmp).free / 1e9
+        mgr = CheckpointManager(tmp)
+        t0 = time.perf_counter()
+        mgr.save(loop.step, {"params": params, "opt": opt}, extra={"data": ds.state_dict()})
+        save_s = time.perf_counter() - t0
+        fresh = TrainLoop(step, dataset(), ckpt_dir=tmp)
+        t0 = time.perf_counter()
+        p2, o2, resumed = fresh.maybe_restore(params, opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b.detach()) and a.dtype == b.dtype for a, b in
+                   zip(tree_leaves({"p": p2, "o": o2}), tree_leaves({"p": params, "o": opt})))
+        ok = resumed and same and fresh.step == loop.step and \
+            fresh.dataset.state_dict() == ds.state_dict()
+        print(f"  checkpoint at step {loop.step} ({state_gb:.3f} GB, enc_groups among its "
+              f"leaves; {free:.0f} GB free there): save {save_s:.2f} s, restore into a fresh "
+              f"loop {restore_s:.2f} s; params, AdamW state and the data step bit for bit "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{SM}: checkpoint round trip differs")
+        del p2, o2, fresh
+    torch.cuda.empty_cache()
+
+    k = loop.step
+    batch = ds._batch_at(k)
+    with step_phases(torch, tstep) as ph:
+        for _ in range(2):  # the second step: nothing else queued before it
+            torch.cuda.synchronize()
+            step(params, opt, batch, k)
+            ph_ms = ph.times()
+    print("  one step by phase (CUDA events on the stream, ms): "
+          + ", ".join(f"{n} {v:.2f}" for n, v in ph_ms.items()))
+    device_breakdown(torch, f"{SM} train step", lambda: step(params, opt, batch, k), top=8)
+    # the same step without remat (the same values; it fits at this size):
+    # what the "dots" policy's per-op callback costs on the host
+    bare = tstep.make_train_step(replace(cfg, remat="none"), opt_cfg, ParallelConfig())
+    torch.cuda.reset_peak_memory_stats()
+    with step_phases(torch, tstep) as ph:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bare(params, opt, batch, k)
+            bare_ms = ph.times()
+            wall = (time.perf_counter() - t0) * 1e3
+    print(f"  the same step with remat 'none': {wall:.2f} ms (host clock, synchronized); by "
+          f"phase " + ", ".join(f"{n} {v:.2f}" for n, v in bare_ms.items())
+          + f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    device_breakdown(torch, f"{SM} train step, remat 'none'",
+                     lambda: bare(params, opt, batch, k), top=4)
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def train_cli(label, arch_args):
+    """The training CLI on the card in a subprocess, 4 steps, then --resume
+    for 2 more."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(prefix="repro-train-cli-") as tmp:
+        env["REPRO_CACHE_DIR"] = tmp  # its plans in a cache of its own
+        ckpt = str(Path(tmp) / "ckpt")
+        base = [sys.executable, "-m", "repro_torch.launch.train", *arch_args, "--ckpt-dir",
+                ckpt, "--log-every", "2"]
+        for extra in (["--steps", "4"], ["--steps", "2", "--resume"]):
+            t0 = time.perf_counter()
+            r = subprocess.run(base + extra, capture_output=True, text=True, timeout=300,
+                               env=env, cwd=str(ROOT))
+            lines = (r.stdout.strip().splitlines() or [""])
+            print(f"  {label}: {' '.join(base[1:] + extra)}: rc={r.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s; {' | '.join(lines[-3:])}")
+            if r.returncode != 0:
+                print(r.stderr[-3000:], file=sys.stderr)
+                raise AssertionError(f"the training CLI failed: rc {r.returncode}")
+        if "resumed=True at step 4" not in r.stdout or "@ step 6" not in r.stdout:
+            raise AssertionError("the training CLI did not resume at step 4")
+
+
+def phase_encdec(args, torch, kops, dev):
+    """Phase 14: seamless-m4t-large-v2 served and trained on the card."""
+    t_start = time.perf_counter()
+    m = serve_modules()
+    engine = sm_serve(args, torch, kops, m, dev)
+    sm_check(args, torch, m, dev)
+    sm_serve_fallback(args, torch, m, dev, engine)
+    del engine
+    torch.cuda.empty_cache()
+    sm_train(args, torch, m, dev)
+    print("phase 14e: the training CLI on the reduced config, then --resume")
+    train_cli("phase 14e", ["--arch", SM, "--reduced"])
+    print(f"phase 14: {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -3611,6 +4046,9 @@ def main() -> int:
 
     # -- phase 13 ----------------------------------------------------------
     train_keys = phase_train(args, torch, kops, kref, dev)
+
+    # -- phase 14 ----------------------------------------------------------
+    phase_encdec(args, torch, kops, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))

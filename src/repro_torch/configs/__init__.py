@@ -3,8 +3,8 @@ ported one at a time with the slice that first runs them).
 
 ``get_config(name, reduced=False)`` returns the published config (full) or
 a structure-preserving small one (reduced), equal field for field to the
-JAX package's. ``ARCH_IDS`` is the reference's architecture pool; an arch
-whose module is not ported yet raises ``NotImplementedError`` naming it.
+JAX package's. ``ARCH_IDS`` is the reference's architecture pool, every
+arch of it ported.
 The SABLE variant ``llama3-8b-sable`` (``llama3_8b.full_sable`` /
 ``reduced_sable``), which the reference's ``get_config`` does not list, is
 served by name here.
@@ -38,15 +38,12 @@ _MODULES = {
     "deepseek-v2-236b": ("deepseek_v2_236b", "full", "reduced"),
     "llama4-scout-17b-a16e": ("llama4_scout_17b_a16e", "full", "reduced"),
     "chameleon-34b": ("chameleon_34b", "full", "reduced"),
+    "seamless-m4t-large-v2": ("seamless_m4t_large_v2", "full", "reduced"),
 }
 
 
 def get_config(name: str, reduced: bool = False):
     if name not in _MODULES:
-        if name in ARCH_IDS:
-            raise NotImplementedError(
-                f"arch {name!r} is not ported yet (ported: {sorted(_MODULES)})"
-            )
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS + ['llama3-8b-sable']}")
     module, full, small = _MODULES[name]
     mod = importlib.import_module(f".{module}", __package__)

@@ -15,7 +15,10 @@ mixed prompt and generation lengths, admission and eviction mid-decode)::
 The Mamba-2 models serve the same way: ``--arch mamba2-1.3b`` (every cache
 leaf per-sequence state) and ``--arch jamba-1.5-large-398b --reduced``
 (Mamba, attention and MoE layers: paged KV and state in one cache); their
-caches refuse ``--prefix-sharing`` and ``--chunked-prefill``.
+caches refuse ``--prefix-sharing`` and ``--chunked-prefill``. An
+encoder-decoder model (seamless-m4t-large-v2) needs ``src_embeds``, which
+the CLI does not make: it raises ``ValueError`` (serve it through
+``ServeEngine.generate(..., src_embeds=)``).
 
 Both run on the CUDA card (and fail without one); ``--device cpu`` runs the
 plain PyTorch versions of the kernels, e.g. with ``--reduced``. Params are
@@ -73,8 +76,14 @@ def main(argv=None):
     from ..models.transformer import init_params
     from ..serve.engine import ServeEngine
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.is_encdec:  # the reference's CLI asserts in generate for want of them
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: serving it needs src_embeds (frame "
+            "embeddings), which this CLI does not make; call ServeEngine.generate(..., "
+            "src_embeds=) or ServeEngine.serve with a src_embeds entry per request"
+        )
+    dev = resolve_device(args.device)
     cfg = dataclasses.replace(cfg, param_dtype=cfg.compute_dtype)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, device=dev)

@@ -1,11 +1,12 @@
-"""Attention mixers: GQA with RoPE and optional qk-norm, and MLA
-(DeepSeek-V2's multi-head latent attention) (port of
-``repro.models.attention``; cross-attention comes in a later slice).
+"""Attention mixers: GQA with RoPE and optional qk-norm, MLA (DeepSeek-V2's
+multi-head latent attention) and the decoder's cross-attention over an
+encoder's output (port of ``repro.models.attention``).
 
 Cache layout (per layer): GQA ``{"k": (B, S_max, Kv, Dh), "v": (B, S_max,
 Kv, Dh)}``; MLA ``{"ckv": (B, S_max, kv_lora_rank), "kr": (B, S_max,
 qk_rope_dim)}``, the compressed latent and the rope key shared by every
-head. The reference writes the new entries with ``dynamic_update_slice``
+head; cross ``{"k": (B, S_src, Kv, Dh), "v": ...}``, computed once at
+prefill (``cross_kv``) and read at decode. The reference writes the new entries with ``dynamic_update_slice``
 into a cache its decode step donates; the port writes them in place at
 ``cache_pos`` (an int, or a (B,) tensor of per-lane offsets) and returns
 the same dict.
@@ -266,12 +267,40 @@ def mla_apply(
 
 
 # ---------------------------------------------------------------------- #
-# cross-attention: the encoder-decoder slice
+# Cross-attention (encoder-decoder)
 # ---------------------------------------------------------------------- #
-def _cross_not_ported(*_args, **_kwargs):
-    raise NotImplementedError(
-        "cross-attention is not ported yet; it comes with the encoder-decoder slice"
-    )
+def cross_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+               device=None) -> dict:
+    """Random params in the reference's layout (``wq``, ``wk``, ``wv``,
+    ``wo``), drawn from ``generator``."""
+    d, H, Kv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def init(shape):
+        return dense_init(generator, shape, dtype=dtype, device=device)
+
+    return {
+        "wq": init((d, H * Dh)),
+        "wk": init((d, Kv * Dh)),
+        "wv": init((d, Kv * Dh)),
+        "wo": init((H * Dh, d)),
+    }
 
 
-cross_init = cross_apply = _cross_not_ported
+def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
+    """The encoder output's keys and values, (B, S_src, Kv, Dh) each, in
+    ``enc_out``'s dtype: computed once a prefill and cached for decode."""
+    B, Sk, _ = enc_out.shape
+    Kv, Dh = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, Sk, Kv, Dh)
+    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(B, Sk, Kv, Dh)
+    return {"k": k, "v": v}
+
+
+def cross_apply(p: dict, x: torch.Tensor, kv: dict, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) attends, unmasked and without RoPE, over ``kv`` (cast to
+    x's dtype) -> (B, S, d)."""
+    B, S, d = x.shape
+    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, Kv, H // Kv, Dh)
+    out = _sdpa(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype), None)
+    return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)

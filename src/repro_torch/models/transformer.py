@@ -1,14 +1,15 @@
-"""Model assembly: groups of stacked blocks -> LM forward passes (port of
-``repro.models.transformer``).
+"""Model assembly: groups of stacked blocks -> LM / enc-dec forward passes
+(port of ``repro.models.transformer``).
 
 Public entry points (functions of (params, cfg, inputs)):
 
   init_params(cfg, generator, device)           -> params dict
   forward_train(params, cfg, batch)             -> (logits, aux_loss)
-  init_cache(cfg, batch, s_max, dtype, device)  -> cache list
-  prefill(params, cfg, tokens, cache)           -> (logits, cache)
-  prefill_chunk(params, cfg, tokens, cache, start)
+  init_cache(cfg, batch, s_max, enc_len, dtype, device) -> cache list
+  prefill(params, cfg, tokens, cache, enc_out)  -> (logits, cache)
+  prefill_chunk(params, cfg, tokens, cache, start, enc_out)
   decode_step(params, cfg, token, cache, pos)   -> (logits, cache)
+  encode(params, cfg, src_embeds)               -> enc_out  (enc-dec only)
 
 Params keep the reference's layout: each group's leaves are stacked along a
 leading ``repeat`` axis, so ``convert.params_from_arrays`` maps the
@@ -32,9 +33,14 @@ matmuls (``mm``/``addmm``, no batch dims), the counterpart of
 memory differs. Gradients reach the stacked ``(repeat, ...)`` leaves through
 the per-layer views.
 
-Ported: the GQA, MLA and Mamba-2 mixers, the dense FFN (dense or SABLE
-block-sparse) and the MoE FFN. Cross-attention and ``encode`` raise
-``NotImplementedError`` until the encoder-decoder slice.
+An encoder-decoder model (``cfg.enc_groups``) runs ``encode`` over
+precomputed frame embeddings: the encoder's groups, bidirectional, with
+RoPE at positions ``arange(S_src)``, then ``enc_final_norm``. Each decoder
+layer with cross-attention computes the encoder output's keys and values
+(``cross_kv``) in "prefill" and "train" modes; at prefill it writes them in
+place into the cache's ``cross`` leaves (in the cache's dtype), which the
+"decode" mode reads, so that a decode step needs no ``enc_out``. A chunked
+prefill recomputes them every chunk, as the reference's does.
 """
 from __future__ import annotations
 
@@ -43,7 +49,15 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from .attention import gqa_apply, gqa_init, mla_apply, mla_init
+from .attention import (
+    cross_apply,
+    cross_init,
+    cross_kv,
+    gqa_apply,
+    gqa_init,
+    mla_apply,
+    mla_init,
+)
 from .config import GroupSpec, LayerSpec, ModelConfig
 from .layers import dense_init, ffn_apply, ffn_init, rmsnorm
 from .moe import moe_apply, moe_init
@@ -68,21 +82,6 @@ def _pdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet; they come with the "
-            "encoder-decoder slice"
-        )
-    for g in cfg.groups:
-        for s in g.layers:
-            if s.cross_attn:
-                raise NotImplementedError(
-                    f"{cfg.name}: cross-attention is not ported yet; it comes with the "
-                    "encoder-decoder slice"
-                )
-
-
 # ---------------------------------------------------------------------- #
 # Init
 # ---------------------------------------------------------------------- #
@@ -95,6 +94,9 @@ def _sublayer_init(gen, cfg: ModelConfig, spec: LayerSpec, dtype, dev):
     elif spec.mixer == "mamba":
         p["mixer"] = mamba_init(gen, cfg, dtype, device=dev)
         p["ln_mixer"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+    if spec.cross_attn:
+        p["cross"] = cross_init(gen, cfg, dtype, device=dev)
+        p["ln_cross"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
     if spec.ffn == "dense":
         p["ffn"] = ffn_init(gen, cfg, dtype=dtype, device=dev)
         p["ln_ffn"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
@@ -154,7 +156,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     from ``generator`` (which must live on ``device``, None = the card). To
     compute the reference's model, carry its params across with
     ``convert.params_from_arrays`` instead."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     dtype = _pdtype(cfg)
     params = {
@@ -165,6 +166,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), 0.02, dtype,
                                        dev)
+    if cfg.is_encdec:
+        params["enc_groups"] = [_group_init(generator, cfg, g, dtype, dev)
+                                for g in cfg.enc_groups]
+        params["enc_final_norm"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+        if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
+            params["frontend_proj"] = dense_init(generator, (cfg.frontend_dim, cfg.d_model),
+                                                 dtype=dtype, device=dev)
     return params
 
 
@@ -180,6 +188,7 @@ def _block_apply(
     cache_slice: Optional[dict],
     cache_pos,
     causal: bool,
+    enc_out,
     mode: str,
 ):
     aux = 0.0  # a float32 tensor once an MoE layer adds its loss
@@ -205,6 +214,20 @@ def _block_apply(
             if c is not None:
                 for k, v in nc.items():  # in place: callers read the cache they passed
                     c["ssm_cache"][k].copy_(v)
+        if spec.cross_attn:
+            h = rmsnorm(x, p["ln_cross"], eps)
+            cc = c.get("cross") if c is not None else None
+            if cc is not None and mode == "decode":
+                kv = cc
+            else:
+                if enc_out is None:
+                    raise ValueError(f"{cfg.name}: cross-attention needs enc_out "
+                                     "(encode's output) outside a cached decode step")
+                kv = cross_kv(p["cross"], enc_out, cfg)
+                if cc is not None:
+                    for k, v in kv.items():  # in place, for the decode steps to read
+                        cc[k].copy_(v)
+            x = x + cross_apply(p["cross"], h, kv, cfg)
         if spec.ffn == "dense":
             x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln_ffn"], eps), cfg)
         elif spec.ffn == "moe":
@@ -253,11 +276,12 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def _run_groups(cfg: ModelConfig, groups, group_params, x, positions, caches, cache_pos,
-                causal, mode: str):
+                causal, enc_out, mode: str):
     """Run each group's layers in order over views of its stacked params
     (and cache, written in place); ``mode`` is "prefill", "decode" or
-    "train" (no cache; each block under ``cfg.remat``). Returns (x, caches,
-    aux)."""
+    "train" (no cache; each block under ``cfg.remat``). ``enc_out`` is the
+    encoder's output the cross-attention layers read (None without them).
+    Returns (x, caches, aux)."""
     aux_total = 0.0
     for gi, g in enumerate(groups):
         layers = _unstack(group_params[gi], g.repeat)
@@ -265,7 +289,7 @@ def _run_groups(cfg: ModelConfig, groups, group_params, x, positions, caches, ca
 
         def block(p_slice, x, c_slice=None, specs=g.layers):
             return _block_apply(cfg, specs, p_slice, x, positions, c_slice, cache_pos, causal,
-                                mode)
+                                enc_out, mode)
 
         if mode == "train":
             block = _remat(cfg, block)
@@ -278,40 +302,40 @@ def _run_groups(cfg: ModelConfig, groups, group_params, x, positions, caches, ca
 # ---------------------------------------------------------------------- #
 # Cache construction
 # ---------------------------------------------------------------------- #
-def _sub_cache(cfg: ModelConfig, spec: LayerSpec, shape_prefix, s_max, dtype, dev):
+def _sub_cache(cfg: ModelConfig, spec: LayerSpec, shape_prefix, s_max, enc_len, dtype, dev):
+    def zeros(*shape):
+        return torch.zeros(shape_prefix + shape, dtype=dtype, device=dev)
+
+    c = {}
     if spec.mixer == "gqa":
-        kv = shape_prefix + (s_max, cfg.n_kv_heads, cfg.head_dim)
-        return {"attn": {"k": torch.zeros(kv, dtype=dtype, device=dev),
-                         "v": torch.zeros(kv, dtype=dtype, device=dev)}}
-    if spec.mixer == "mla":
+        kv = (s_max, cfg.n_kv_heads, cfg.head_dim)
+        c["attn"] = {"k": zeros(*kv), "v": zeros(*kv)}
+    elif spec.mixer == "mla":
         m = cfg.mla
-        return {"attn": {
-            "ckv": torch.zeros(shape_prefix + (s_max, m.kv_lora_rank), dtype=dtype, device=dev),
-            "kr": torch.zeros(shape_prefix + (s_max, m.qk_rope_dim), dtype=dtype, device=dev),
-        }}
-    if spec.mixer == "mamba":  # whole per-sequence state: no sequence axis
+        c["attn"] = {"ckv": zeros(s_max, m.kv_lora_rank), "kr": zeros(s_max, m.qk_rope_dim)}
+    elif spec.mixer == "mamba":  # whole per-sequence state: no sequence axis
         s = cfg.ssm
         ch = s.d_inner(cfg.d_model) + 2 * s.n_groups * s.d_state
-        return {"ssm_cache": {
-            "conv": torch.zeros(shape_prefix + (s.d_conv - 1, ch), dtype=dtype, device=dev),
-            "ssm": torch.zeros(shape_prefix + (s.n_heads(cfg.d_model), s.d_state, s.head_dim),
-                               dtype=dtype, device=dev),
-        }}
-    return {}
+        c["ssm_cache"] = {"conv": zeros(s.d_conv - 1, ch),
+                          "ssm": zeros(s.n_heads(cfg.d_model), s.d_state, s.head_dim)}
+    if spec.cross_attn:  # the encoder output's keys and values, written at prefill
+        kv = (enc_len, cfg.n_kv_heads, cfg.head_dim)
+        c["cross"] = {"k": zeros(*kv), "v": zeros(*kv)}
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, enc_len: int = 0, dtype=None,
                device=None):
     """Decode-capacity cache, stacked (repeat, ...) per group, zeros on
-    ``device`` (None = the card) in ``dtype`` (default: the compute dtype)."""
-    _check_ported(cfg)
+    ``device`` (None = the card) in ``dtype`` (default: the compute dtype);
+    the cross-attention leaves hold ``enc_len`` encoder positions."""
     dev = resolve_device(device)
     dtype = dtype or _cdtype(cfg)
     out = []
     for g in cfg.groups:
         block = {}
         for i, s in enumerate(g.layers):
-            c = _sub_cache(cfg, s, (g.repeat, batch), s_max, dtype, dev)
+            c = _sub_cache(cfg, s, (g.repeat, batch), s_max, enc_len, dtype, dev)
             if c:
                 block[f"sub{i}"] = c
         out.append(block)
@@ -338,38 +362,39 @@ def _unembed(params, cfg, x):
     return logits
 
 
-def _no_encoder(enc_out) -> None:
-    if enc_out is not None:
-        raise NotImplementedError(
-            "enc_out= (encoder-decoder models) is not ported yet; it comes with the "
-            "encoder-decoder slice"
-        )
-
-
 def encode(params, cfg: ModelConfig, src_embeds):
-    raise NotImplementedError(
-        "encode (encoder-decoder models) is not ported yet; it comes with the "
-        "encoder-decoder slice"
-    )
+    """Encoder stack over precomputed frontend embeddings (B, S_src,
+    frontend_dim), a tensor on the params' device: bidirectional, RoPE at
+    positions arange(S_src), under ``cfg.remat`` where gradients are on.
+    Returns (B, S_src, d_model) in the compute dtype."""
+    x = src_embeds.to(_cdtype(cfg))
+    if "frontend_proj" in params:
+        x = x @ params["frontend_proj"].to(x.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, _ = _run_groups(cfg, cfg.enc_groups, params["enc_groups"], x, positions, None, None,
+                          False, None, "train")
+    return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def forward_train(params, cfg: ModelConfig, batch: dict):
     """Teacher-forced forward. batch: {"tokens": (B, S)} integer tensor on
-    the params' device. Returns (logits (B, S, V) in the compute dtype, aux
-    0-d float32: the MoE layers' load-balance loss, 0 without them)."""
-    _check_ported(cfg)
+    the params' device and, for an enc-dec model, {"src_embeds": (B, S_src,
+    frontend_dim)}. Returns (logits (B, S, V) in the compute dtype, aux 0-d
+    float32: the MoE layers' load-balance loss, 0 without them)."""
     tokens = batch["tokens"]
+    enc_out = encode(params, cfg, batch["src_embeds"]) if cfg.is_encdec else None
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _, aux = _run_groups(cfg, cfg.groups, params["groups"], x, positions, None, None,
-                            cfg.causal, "train")
+                            cfg.causal, enc_out, "train")
     if not isinstance(aux, torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(params, cfg, x), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, enc_out=None):
-    """Process the prompt, filling the cache at positions [0, S)."""
+    """Process the prompt, filling the cache at positions [0, S) (and, for
+    an enc-dec model, its cross leaves from ``enc_out``)."""
     return prefill_chunk(params, cfg, tokens, cache, 0, enc_out=enc_out)
 
 
@@ -382,19 +407,19 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, cache, start: int, enc_out=N
     sub-layer in "prefill" mode recomputes its state from scratch over just
     this chunk (as the reference's does), so chunked callers (the serving
     scheduler) gate on a fully-paged cache."""
-    _no_encoder(enc_out)
     x = _embed(params, cfg, tokens)
     positions = start + torch.arange(tokens.shape[1], device=tokens.device)
     x, new_cache, _ = _run_groups(cfg, cfg.groups, params["groups"], x, positions, cache,
-                                  start, cfg.causal, "prefill")
+                                  start, cfg.causal, enc_out, "prefill")
     return _unembed(params, cfg, x[:, -1:]), new_cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
     """One decode step. token: (B, 1) integer; pos: its position, an int
     for the whole batch or a (B,) integer tensor, one per lane (each lane
-    writes its cache at its own position and attends up to it)."""
-    _no_encoder(enc_out)
+    writes its cache at its own position and attends up to it). An enc-dec
+    model reads the cross keys and values its prefill cached: ``enc_out``
+    is not needed."""
     x = _embed(params, cfg, token)
     if isinstance(pos, torch.Tensor):
         positions = pos.to(device=token.device, dtype=torch.int32).reshape(-1, 1)
@@ -402,5 +427,5 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
         positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
                                device=token.device)
     x, new_cache, _ = _run_groups(cfg, cfg.groups, params["groups"], x, positions, cache,
-                                  pos, cfg.causal, "decode")
+                                  pos, cfg.causal, enc_out, "decode")
     return _unembed(params, cfg, x), new_cache

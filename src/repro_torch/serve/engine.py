@@ -9,6 +9,14 @@ cache: the numeric reference path. ``serve`` is request-level continuous
 batching over the paged KV cache (``scheduler.py``, ``paged_cache.py``),
 whose greedy tokens equal ``generate`` on each request alone.
 
+An encoder-decoder config serves through ``generate(..., src_embeds=)``:
+the frames are encoded once, and the cache holds each decoder layer's cross
+keys and values at the source length. ``serve`` cannot page such a cache
+(the paged cache pages self-attention KV only), so for an enc-dec config it
+runs the reference's explicit fallback: a once-per-process warning,
+``warmup_stats["paged"] = False``, and each request through ``generate``
+alone, with its own ``src_embeds``.
+
 Startup warmup resolves the sparse-matmul plans of a SABLE model before the
 first request and is restart-aware: when the persistent plan cache
 (``core/cache.py``) already holds every plan for the device, the warmup only
@@ -17,16 +25,39 @@ measures.
 """
 from __future__ import annotations
 
+import itertools
 import time
+import warnings
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import decode_step, init_cache, prefill
+from ..models.transformer import decode_step, encode, init_cache, prefill
 from ..tree import tree_paths
 
 __all__ = ["ServeEngine"]
+
+# warn-once flag for the enc-dec serve() fallback (tests reset it to see the
+# warning again)
+_ENCDEC_FALLBACK_WARNED = False
+_FALLBACK_RID = itertools.count()
+
+
+def _warn_encdec_fallback() -> None:
+    global _ENCDEC_FALLBACK_WARNED
+    if _ENCDEC_FALLBACK_WARNED:
+        return
+    _ENCDEC_FALLBACK_WARNED = True
+    warnings.warn(
+        "enc-dec config: the paged KV cache only pages self-attention KV "
+        "(cross-attention KV is per-request static), so serve() is running the "
+        "single-batch generate() fallback: no continuous batching, no paging "
+        "(warmup_stats['paged'] = False)",
+        UserWarning,
+        stacklevel=3,
+    )
 
 
 def _has_sparse_ffn(params, patterns) -> bool:
@@ -69,11 +100,6 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "ServeEngine(mesh=) is not ported yet; it comes with the sharding slice"
-            )
-        if cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder serving is not ported yet; it comes with the "
-                "encoder-decoder slice"
             )
         self.cfg = cfg
         self.params = params
@@ -123,8 +149,8 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _prefill(self, tokens, cache):
-        return prefill(self.params, self.cfg, tokens, cache)
+    def _prefill(self, tokens, cache, enc_out=None):
+        return prefill(self.params, self.cfg, tokens, cache, enc_out=enc_out)
 
     def _decode(self, tok, cache, pos: int, temperature: float, generator):
         """One decode step and the next token: greedy at temperature 0,
@@ -156,8 +182,16 @@ class ServeEngine:
         max_new_tokens, temperature, generator or seed, patterns, rid,
         arrival) and run the scheduler to completion. Returns ``(results,
         scheduler)``, results mapping rid -> {tokens, prompt_len, metrics,
-        state}. (An encoder-decoder config never gets here: the constructor
-        refuses it until the encoder-decoder slice.)"""
+        state}.
+
+        An enc-dec config takes the explicit fallback instead: a
+        once-per-process warning, ``paged: False`` in ``warmup_stats``, each
+        request through ``generate`` alone, and None for the scheduler. Its
+        request dicts take a ``src_embeds`` entry ((S, d) or (1, S, d))."""
+        if self.cfg.is_encdec:
+            _warn_encdec_fallback()
+            self.warmup_stats["paged"] = False
+            return self._serve_fallback(requests), None
         self.warmup_stats["paged"] = True
         sched = self.make_scheduler(**kw)
         for r in requests:
@@ -167,6 +201,38 @@ class ServeEngine:
         for k in ("prefix_hits", "pages_shared", "cow_copies"):
             self.warmup_stats[k] = sched.stats[k]
         return results, sched
+
+    def _serve_fallback(self, requests) -> dict:
+        """Each request through ``generate`` in turn, with scheduler-shaped
+        results (rid -> {tokens, prompt_len, metrics, state}). A request
+        samples from its ``generator``, else from one seeded ``seed``."""
+        results = {}
+        for r in requests:
+            r = dict(r)
+            rid = r.pop("rid", None) or f"req{next(_FALLBACK_RID)}"
+            prompt = np.asarray(r.pop("prompt"), np.int32).reshape(-1)
+            src = r.pop("src_embeds", None)
+            if src is not None:
+                src = torch.as_tensor(src, device=self.device)
+                if src.dim() == 2:
+                    src = src[None]
+            generator, seed = r.pop("generator", None), r.pop("seed", None)
+            if generator is None and seed is not None:
+                generator = torch.Generator(device=self.device).manual_seed(int(seed))
+            out, stats = self.generate(
+                torch.as_tensor(prompt[None], device=self.device),
+                r.pop("max_new_tokens"),
+                temperature=r.pop("temperature", 0.0),
+                src_embeds=src,
+                generator=generator,
+            )
+            results[rid] = {
+                "tokens": out[0].cpu().numpy().astype(np.int32),
+                "prompt_len": int(prompt.shape[0]),
+                "metrics": {**stats, "fallback": "generate"},
+                "state": "FINISHED",
+            }
+        return results
 
     # ------------------------------------------------------------------ #
     # single-batch path (the numeric reference)
@@ -188,12 +254,13 @@ class ServeEngine:
         Sampling draws from ``generator`` (default: seed 0 on the device)
         with ``torch.multinomial``, which cannot reproduce
         ``jax.random.categorical``'s draws.
+
+        An enc-dec config needs ``src_embeds`` (B, S_src, frontend_dim):
+        they are encoded once (``stats["encode_s"]``), the prefill writes
+        every decoder layer's cross keys and values into the cache, and the
+        decode steps read them there. A decoder-only config ignores
+        ``src_embeds``, as the reference does.
         """
-        if src_embeds is not None:
-            raise NotImplementedError(
-                "src_embeds= (encoder-decoder serving) is not ported yet; it comes with "
-                "the encoder-decoder slice"
-            )
         cfg = self.cfg
         prompts = torch.as_tensor(prompts, device=self.device).long()
         B, P = prompts.shape
@@ -202,10 +269,21 @@ class ServeEngine:
                              f"{self.max_len}")
         if generator is None and temperature > 0:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        cache = init_cache(cfg, B, self.max_len, device=self.device)
+        enc_out, enc_len, encode_s = None, 0, {}
+        if cfg.is_encdec:
+            if src_embeds is None:
+                raise ValueError(f"{cfg.name}: enc-dec serving needs src_embeds")
+            src = torch.as_tensor(src_embeds, device=self.device)
+            enc_len = src.shape[1]
+            self._sync()
+            t0 = time.perf_counter()
+            enc_out = encode(self.params, cfg, src)
+            self._sync()
+            encode_s = {"encode_s": time.perf_counter() - t0}
+        cache = init_cache(cfg, B, self.max_len, enc_len=enc_len, device=self.device)
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self._prefill(prompts, cache)
+        logits, cache = self._prefill(prompts, cache, enc_out)
         nxt = torch.argmax(logits[:, -1].float(), dim=-1, keepdim=True)
         self._sync()
         t1 = time.perf_counter()
@@ -221,5 +299,6 @@ class ServeEngine:
             "prefill_s": t1 - t0,
             "decode_s": t2 - t1,
             "tokens_per_s": B * max_new_tokens / max(t2 - t1, 1e-9),
+            **encode_s,
         }
         return out, stats

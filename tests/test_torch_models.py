@@ -95,7 +95,8 @@ def _gqa_cfg():
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("arch", ["nemotron-4-15b", "llama3.2-3b", "granite-8b", "llama3-8b",
                                   "mamba2-1.3b", "jamba-1.5-large-398b", "deepseek-v2-236b",
-                                  "llama4-scout-17b-a16e", "chameleon-34b"])
+                                  "llama4-scout-17b-a16e", "chameleon-34b",
+                                  "seamless-m4t-large-v2"])
 def test_configs_equal_jax(jx, arch):
     from repro.models.config import param_count as jcount
 
@@ -124,10 +125,10 @@ def test_sable_configs_and_patterns_equal_jax(jx):
     for k in ("in", "out"):
         assert dataclasses.asdict(pats[k]) == dataclasses.asdict(jpats[k])
     assert tconfigs.ARCH_IDS == jx.configs.ARCH_IDS
-    for arch in ("seamless-m4t-large-v2",):
-        with pytest.raises(NotImplementedError, match=arch):
-            tconfigs.get_config(arch)
-    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):  # ported with the Mamba slice
+    for arch in tconfigs.ARCH_IDS:  # every arch of the pool is ported
+        assert tconfigs.get_config(arch).name == arch
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b",  # ported with the Mamba slice
+                 "seamless-m4t-large-v2"):  # ported with the encoder-decoder slice
         for reduced in (False, True):
             assert dataclasses.asdict(tconfigs.get_config(arch, reduced=reduced)) == \
                 dataclasses.asdict(jx.configs.get_config(arch, reduced=reduced))
@@ -296,16 +297,28 @@ def _shapes(tree):
 
 
 def test_left_out_parts_raise():
-    """Cross-attention and encoders are a later slice."""
-    ds = tconfigs.get_config("deepseek-v2-236b", reduced=True)
-    gen = torch.Generator()
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tattn.cross_init(gen, ds)
-    cfg = _gqa_cfg()
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        ttr.encode({}, cfg, None)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        ttr.prefill({}, cfg, torch.zeros((1, 1), dtype=torch.long), [], enc_out=1)
+    """Sharding is a later slice: the sparse FFN's mesh= and shard= raise.
+    Cross-attention and the encoder run (tests/test_torch_encdec.py): a
+    cross-attention layer without the encoder's output outside a cached
+    decode step is a ValueError."""
+    from repro_torch.sparse import linear as tlin
+
+    cfg = _f32(tconfigs.get_config("llama3-8b-sable", reduced=True))
+    p = tlayers.ffn_init(torch.Generator().manual_seed(0), cfg, device=CPU)
+    x = torch.zeros((1, 2, cfg.d_model))
+    pat = tlayers.sable_patterns(cfg)["in"]
+    for kw in ({"mesh": object()}, {"shard": object()}):
+        with pytest.raises(NotImplementedError, match="sharding slice"):
+            tlin.sparse_matmul_auto(x, p["w1"], pat, **kw)
+    with pytest.raises(NotImplementedError, match="sharding slice"):
+        tlin.warm_matmul_plans([pat], mesh=object())
+    sm = _f32(tconfigs.get_config("seamless-m4t-large-v2", reduced=True))
+    gen = torch.Generator().manual_seed(0)
+    assert set(tattn.cross_init(gen, sm, device=CPU)) == {"wq", "wk", "wv", "wo"}
+    params = ttr.init_params(sm, gen, device=CPU)
+    cache = ttr.init_cache(sm, 1, 4, enc_len=3, device=CPU)
+    with pytest.raises(ValueError, match="enc_out"):
+        ttr.prefill(params, sm, torch.zeros((1, 2), dtype=torch.long), cache)
 
 
 # ---------------------------------------------------------------------- #

@@ -152,8 +152,9 @@ def test_cli_generates_moe_models_on_cpu(plan_dir, capsys, arch):
 
 def test_cli_and_engine_refuse_what_is_left_out(plan_dir, monkeypatch):
     """Without --device the CLI wants the card and raises without one, with
-    --continuous too; sharding (the engine's and the scheduler's mesh=) and
-    encoder-decoder serving raise until their slices."""
+    --continuous too; sharding (the engine's and the scheduler's mesh=)
+    raises until its slice. A decoder-only engine ignores src_embeds=, as
+    the reference's does (enc-dec serving: tests/test_torch_encdec.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
         tlaunch.main(["--arch", "llama3-8b-sable", "--reduced"])
@@ -165,8 +166,9 @@ def test_cli_and_engine_refuse_what_is_left_out(plan_dir, monkeypatch):
     assert eng.serve([])[0] == {}
     with pytest.raises(NotImplementedError, match="sharding slice"):
         eng.make_scheduler(mesh=object())
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        eng.generate(torch.zeros((1, 2), dtype=torch.long), 2, src_embeds=np.zeros((1, 2, 4)))
+    prompt = torch.zeros((1, 2), dtype=torch.long)
+    with_src, _ = eng.generate(prompt, 2, src_embeds=np.zeros((1, 2, 4)))
+    assert torch.equal(with_src, eng.generate(prompt, 2)[0])
     with pytest.raises(ValueError, match="max_len"):
         eng.generate(torch.zeros((1, 6), dtype=torch.long), 4)
     with pytest.raises(NotImplementedError, match="sharding slice"):

@@ -500,9 +500,6 @@ def test_left_out_parts_raise(tmp_path):
         tckpt.restore_checkpoint(str(tmp_path), {}, shardings=object())
     with pytest.raises(NotImplementedError, match="sharding slice"):
         tlaunch.main(["--arch", "llama3-8b", "--reduced", "--devices", "2", "--device", CPU])
-    cfg = tconfigs.get_config("llama3-8b", reduced=True)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        ttr.forward_train({}, dataclasses.replace(cfg, enc_groups=cfg.groups), {})
 
 
 # ---------------------------------------------------------------------- #
