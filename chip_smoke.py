@@ -267,6 +267,27 @@ Phases, each printing its lines:
             torch.profiler, and the same step with remat "none"; (e) the
             training CLI on the reduced config in a subprocess, then
             --resume.
+15. sharded  drives the port's sharded staged path (core/sharded.py) on
+            phase 3's u and nu at n = 128, float32 and bfloat16, through
+            the 'cuda' backend, in a plan cache of its own: (a) the host
+            loop, stage_spmv/stage_spmm(shards=8), lpt and contiguous: the
+            launch counts zeroed just before and read just after (K1 and K2
+            once a non-empty shard a call), y against the unsharded call and
+            a dense product at the dtype's tolerance, the imbalance, each
+            shard's tiles and tile shape, the Stage-0 seconds, the call's
+            time beside the unsharded call's and, for lpt, K1 and K2 on each
+            shard's own tables (time, plain version, library call, bound,
+            as phase 4) summed over the shards; (b) backend="autotune" on nu
+            at shards=4: four -s?of4 plans, a warm restart that writes no
+            plan and runs no benchmark; (c) the mesh path in a one-rank NCCL
+            group (file:// store under build/), make_staging_mesh(1) and
+            make_staging_mesh((1, 1)), overlap_gather on and off, against
+            (a)'s host loop, the group torn down after; (d)
+            warm_matmul_plans(mesh=make_staging_mesh(1)) over
+            llama3-8b-sable's FFN patterns: every shard key inherits the
+            measured base without a benchmark, and a restart benchmarks
+            nothing. A one-rank group exchanges nothing: the exchange
+            between ranks is checked on the CPU (tests/test_torch_sharded.py).
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -290,7 +311,12 @@ and K3 at jamba's tables, launches from phase 12's jamba generate, and
 jb_serve_launches from its serve; train_bwd_{ds,da,dw}_{bf16,f32}_* keys
 for the backward's tables (K3 ds and K2 da with copy_ms, K2 dw), their
 launches in 13a's backward counted by table, train_moe_*
-launches of 13a, train_step_* for 13b and train_cut_* for 13c) and
+launches of 13a, train_step_* for 13b, train_ffn_{in,out}_* for K2 at 13b's
+FFN shapes and train_cut_* for 13c; shard_{u,nu}_{f32,bf16}_* for K1 and K2
+in 15a: the sharded call, the unsharded call, the shard tables' kernels,
+plain versions, library calls and bounds summed, launches, imbalance;
+shard_contiguous_*, shard_mesh_*, shard_tune_* and shard_warm_* for the
+rest of phase 15) and
 {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
@@ -1336,10 +1362,11 @@ def pin_strategy(m, patterns, backend: str, dev) -> None:
     tlin._STRATEGY_REGISTRY.clear()
 
 
-def time_ffn_k2(args, torch, kops, kref, m, dev):
+def time_ffn_k2(args, torch, kops, kref, m, dev, cases=None, dtypes=None, label="phase 9a"):
     """K2 at the FFN shapes (896 tiles of 128 x 128; `in`: X (4096, T) ->
-    (14336, T), `out`: X (14336, T) -> (4096, T)) at prefill T = 4096 and
-    decode T = 8, in both dtypes, on the tables and the transposed tiles the
+    (14336, T), `out`: X (14336, T) -> (4096, T)) at each (shape, T) of
+    ``cases`` (default prefill T = 4096 and decode T = 8) in each of
+    ``dtypes`` (default both), on the tables and the transposed tiles the
     cuda strategy builds: each held against its plain version, timed beside
     it, its bound and torch.sparse_bsr_tensor(...) @ X, after an L2 flush;
     and the per-call tile gather and transpose alone."""
@@ -1350,12 +1377,14 @@ def time_ffn_k2(args, torch, kops, kref, m, dev):
     cfg = m["get_config"]("llama3-8b-sable")
     pats = m["tlayers"].sable_patterns(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    cases = cases or (("prefill", SERVE_B * SERVE_P), ("decode", SERVE_B))
+    dtypes = dtypes or (torch.bfloat16, torch.float32)
     records = {}
-    print("phase 9a: K2 at llama3-8b-sable's FFN shapes (896 tiles of 128 x 128)")
+    print(f"{label}: K2 at llama3-8b-sable's FFN shapes (896 tiles of 128 x 128)")
     for pname, pat in pats.items():
         t = tlin._tables(pat, dev)
-        for shape, T in (("prefill", SERVE_B * SERVE_P), ("decode", SERVE_B)):
-            for dtype in (torch.bfloat16, torch.float32):
+        for shape, T in cases:
+            for dtype in dtypes:
                 dname = str(dtype)[6:]
                 tiles = (torch.randn((pat.n_tiles, pat.tm, pat.tk), generator=gen, device=dev)
                          / pat.d_in ** 0.5).to(dtype)
@@ -3457,6 +3486,11 @@ def phase_train(args, torch, kops, kref, dev):
     with temp_plans(m):
         rec = phase_train_llama(args, torch, kops, m, dev)
     keys["bsr_spmm"].update({f"train_step_{k}": v for k, v in rec.items()})
+    # K2 at 13b's FFN shapes, bfloat16 compute over its 8 x 512 tokens
+    for (pname, _, _), r in time_ffn_k2(
+            args, torch, kops, kref, m, dev, cases=(("train", TRAIN_B * TRAIN_S),),
+            dtypes=(torch.bfloat16,), label="phase 13b").items():
+        keys["bsr_spmm"].update({f"train_ffn_{pname}_{k}": v for k, v in r.items()})
     with temp_plans(m):
         worst = phase_train_cut(args, torch, kops, m, dev)
     keys["bsr_spmm"].update({f"train_cut_{k}_rel": v for k, v in worst.items()})
@@ -3897,6 +3931,281 @@ def phase_encdec(args, torch, kops, dev):
     train_cli("phase 14e", ["--arch", SM, "--reduced"])
     print(f"phase 14: {time.perf_counter() - t_start:.1f} s")
 
+# ---------------------------------------------------------------------- #
+# phase 15: sharded staged execution
+# ---------------------------------------------------------------------- #
+SHARDS = 8  # 15a's host loop: the paper's 8 workers
+SHARD_TUNE = 4  # 15b's per-shard autotune on nu
+
+
+def sum_or_none(values):
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
+
+
+def shard_tables(args, torch, kref, ext, flush, ks, km, val, x, X, tag):
+    """K1 and K2 on each shard's own tables (phase 4's time_kernels), their
+    times, plain versions, library calls and bounds summed over the shards:
+    the host loop's kernel work. ``kernels_max_abs_err`` is the worst shard
+    kernel against its plain version, apart from the sharded call's error
+    against the unsharded one (``max_abs_err``)."""
+    recs = {"bsr_spmv": [], "bsr_spmm": []}
+    for s, k1, k2 in zip(ks.plan.shards, ks.kernels, km.kernels):
+        if k1 is None:
+            continue
+        vs = val[torch.as_tensor(s.val_index, device=val.device)]
+        for kname, rec in time_kernels(args, torch, kref, ext, flush, k1, k2, vs, x, X,
+                                       f"{tag} shard {s.shard_id}").items():
+            recs[kname].append(rec)
+    out = {}
+    for kname, rs in recs.items():
+        out[kname] = dict(
+            kernels_ms=sum(r["ms"] for r in rs), plain_ms=sum(r["plain_ms"] for r in rs),
+            library_ms=sum_or_none(r["library_ms"] for r in rs),
+            bound_ms=sum(r["bound_ms"] for r in rs),
+            kernels_max_abs_err=max(r["max_abs_err"] for r in rs))
+        print(f"  {kname} {tag} on the {len(rs)} shards' own tables, summed: "
+              + " ".join(f"{k}={v:.4f}" if v is not None else f"{k}=n/a"
+                         for k, v in out[kname].items()))
+    return out
+
+
+def phase_sharded(args, torch, kops, kref, mats, dev):
+    """Phase 15: sharded staged execution on the paper's matrices, in plan
+    caches of its own. Returns the kernels line's extra keys by kernel."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core import autotune as tautotune
+    from repro_torch.core import staging as tstaging
+    from repro_torch.core.staging import StagingOptions, stage_spmm, stage_spmv
+    from repro_torch.core.vbr import structure_hash
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_staging_mesh
+
+    t_start = time.perf_counter()
+    m = serve_modules()
+    n_cols = 128
+    short = {"torch.float32": "f32", "torch.bfloat16": "bf16"}
+    keys = {"bsr_spmv": {}, "bsr_spmm": {}}
+    ext, flush = _build.load_kernels(), l2_flush(torch)
+    rng = np.random.default_rng(args.seed + 15)
+    inputs = {name: (torch.as_tensor(v.val, device=dev),
+                     torch.as_tensor(rng.standard_normal(v.shape[1]).astype(np.float32),
+                                     device=dev),
+                     torch.as_tensor(rng.standard_normal((v.shape[1], n_cols))
+                                     .astype(np.float32), device=dev))
+              for name, v in mats.items()}
+    host = {}  # (matrix, dtype) -> (kernel, its y, its Y): 15a's lpt host loop
+
+    # -- 15a: the host loop -------------------------------------------------
+    print(f"phase 15a: sharded staging, the host loop (shards={SHARDS}) at 10000 x 10000, "
+          f"n = {n_cols}, 'cuda' backend")
+    with temp_plans(m):
+        for name, v in mats.items():
+            val, x, X = inputs[name]
+            dense = torch.as_tensor(v.to_dense(), device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = short[str(dtype)]
+                opts = StagingOptions(backend="cuda", dtype=dtype)
+                ws, wm = stage_spmv(v, opts, device=dev), stage_spmm(v, n_cols, opts, device=dev)
+                want_s, want_m = ws(val, x), wm(val, X)
+                dd = dense.to(dtype).float()
+                dense_s, dense_m = dd @ x.to(dtype).float(), dd @ X.to(dtype).float()
+                del dd
+                for strategy in ("lpt", "contiguous"):
+                    t0 = time.perf_counter()
+                    ks = stage_spmv(v, opts, device=dev, shards=SHARDS, shard_strategy=strategy)
+                    km = stage_spmm(v, n_cols, opts, device=dev, shards=SHARDS,
+                                    shard_strategy=strategy)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    tag = f"{name} {dn} {strategy} x{SHARDS}"
+                    live = sum(k is not None for k in ks.kernels)
+                    shards = "; ".join(
+                        f"{s.shard_id}: nnz={s.nnz} rows={s.local_m} tiles={k.tiled.n_tiles} "
+                        f"tile={k.tiled.tm}x{k.tiled.tk}"
+                        for s, k in zip(ks.plan.shards, ks.kernels) if k is not None)
+                    print(f"  {tag}: imbalance={ks.imbalance():.4f} staged in {secs:.2f} s "
+                          f"(stage0 spmv {ks.stage0_time:.2f} s, spmm {km.stage0_time:.2f} s); "
+                          f"{shards}")
+                    kops.reset_launches()
+                    y, ym = ks(val, x), km(val, X)
+                    torch.cuda.synchronize()
+                    launches = dict(kops.launches)
+                    print(f"  {tag}: launches {launches} ({live} non-empty shards)")
+                    if launches != {"bsr_spmv": live, "bsr_spmm": live, "bsr_sdd": 0}:
+                        raise AssertionError(f"{tag}: launches {launches}, not one K1 and one "
+                                             f"K2 for each of {live} shards")
+                    err = max(check(f"sharded spmv {tag} vs unsharded", y, want_s, dtype),
+                              check(f"sharded spmm {tag} vs unsharded", ym, want_m, dtype))
+                    check(f"sharded spmv {tag} vs dense", y, dense_s, dtype)
+                    check(f"sharded spmm {tag} vs dense", ym, dense_m, dtype)
+                    if not (torch.isfinite(y.float()).all() and torch.isfinite(ym.float()).all()):
+                        raise AssertionError(f"{tag}: non-finite output")
+                    for kname, k, w, rhs in (("bsr_spmv", ks, ws, x), ("bsr_spmm", km, wm, X)):
+                        ms = median_ms(lambda: k(val, rhs), args.reps, flush)
+                        one_ms = median_ms(lambda: w(val, rhs), args.reps, flush)
+                        print(f"  {kname} {tag}: sharded fn(val, x) ms={ms:.4f} unsharded "
+                              f"fn(val, x) ms={one_ms:.4f}")
+                        pre = f"shard_{name}_{dn}" if strategy == "lpt" else \
+                            f"shard_contiguous_{name}_{dn}"
+                        keys[kname].update({f"{pre}_ms": ms, f"{pre}_unsharded_ms": one_ms,
+                                            f"{pre}_launches": launches[kname],
+                                            f"{pre}_imbalance": ks.imbalance(),
+                                            f"{pre}_max_abs_err": err})
+                    if strategy == "lpt":
+                        host[(name, dtype)] = (y, ym)
+                        for kname, rec in shard_tables(args, torch, kref, ext, flush, ks, km,
+                                                       val, x, X, tag).items():
+                            keys[kname].update({f"shard_{name}_{dn}_{k}": v
+                                                for k, v in rec.items()})
+                    del ks, km
+                del ws, wm, want_s, want_m, dense_s, dense_m
+            del dense
+            tstaging.clear_cache()
+            torch.cuda.empty_cache()
+
+    # -- 15b: per-shard autotune ----------------------------------------------
+    nu = mats["nu"]
+    val, x, _ = inputs["nu"]
+    tp = temp_plans(m)
+    with tp:
+        plans_dir = os.path.join(tp.tmp.name, "plans")
+        auto = StagingOptions(backend="autotune")
+        tautotune.reset_autotune_stats()
+        t0 = time.perf_counter()
+        kt = stage_spmv(nu, auto, device=dev, shards=SHARD_TUNE)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        cold = tautotune.autotune_stats()
+        names = sorted(os.listdir(plans_dir))
+        h, dkey = structure_hash(nu), m["tcache"].device_key(dev)
+        want_names = [f"spmv-{h}-{dkey}-s{i}of{SHARD_TUNE}.json" for i in range(SHARD_TUNE)]
+        picks = [f"{k.backend}{tuple(k.opts.tile) if k.backend == 'cuda' else ''}"
+                 for k in kt.kernels]
+        print(f"phase 15b: autotune nu spmv at shards={SHARD_TUNE}: {secs:.2f} s, "
+              f"benchmarks={cold['benchmarks']} plans_tuned={cold['plans_tuned']}; "
+              f"the shards' picks {picks}")
+        if [n for n in names if f"of{SHARD_TUNE}" in n] != want_names:
+            raise AssertionError(f"per-shard plans {names}, expected {want_names}")
+        y = kt(val, x)
+        torch.cuda.synchronize()
+        check64("autotuned shards nu spmv vs float64", y,
+                nu.to_dense().astype(np.float64) @ x.cpu().numpy().astype(np.float64))
+        tstaging.clear_cache()  # a restart: the plans on disk alone
+        tautotune.reset_autotune_stats()
+        m["tcache"].set_default_cache(m["tcache"].PlanCache(tp.tmp.name))
+        t0 = time.perf_counter()
+        kt2 = stage_spmv(nu, auto, device=dev, shards=SHARD_TUNE)
+        secs = time.perf_counter() - t0
+        warm = tautotune.autotune_stats()
+        same = sorted(os.listdir(plans_dir)) == names
+        print(f"  warm restart: {secs:.2f} s, benchmarks={warm['benchmarks']} "
+              f"plans_tuned={warm['plans_tuned']}, no plan written: {same}")
+        if warm["benchmarks"] or warm["plans_tuned"] or not same:
+            raise AssertionError("the warm restart of the per-shard tune did work again")
+        check("autotuned shards nu spmv, warm restart vs cold", kt2(val, x), y, torch.float32)
+        keys["bsr_spmv"].update(shard_tune_plans=len(want_names), shard_tune_s=secs,
+                                shard_tune_cold_benchmarks=cold["benchmarks"],
+                                shard_tune_warm_benchmarks=warm["benchmarks"])
+        del kt, kt2
+        tstaging.clear_cache()
+
+    # -- 15c, 15d: the mesh path in a one-rank group --------------------------
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    os.makedirs(ROOT / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="pg-") as pg:
+        if dev.type == "cuda":
+            torch.cuda.set_device(torch.cuda.current_device())
+        dist.init_process_group(backend, init_method=f"file://{pg}/store", rank=0,
+                                world_size=1)
+        try:
+            print(f"phase 15c: the mesh path in a one-rank {backend} group (a one-rank group "
+                  f"exchanges nothing: the exchange between ranks is checked on the CPU)")
+            with temp_plans(m):
+                worst = 0.0
+                for spec in (1, (1, 1)):
+                    mesh = make_staging_mesh(spec)
+                    for overlap in (True, False):
+                        for (name, dtype), (y, ym) in host.items():
+                            val, x, X = inputs[name]
+                            opts = StagingOptions(backend="cuda", dtype=dtype)
+                            ks = stage_spmv(mats[name], opts, mesh=mesh, overlap_gather=overlap)
+                            km = stage_spmm(mats[name], n_cols, opts, mesh=mesh,
+                                            overlap_gather=overlap)
+                            kops.reset_launches()
+                            got, gotm = ks(val, x), km(val, X)
+                            torch.cuda.synchronize()
+                            launches = dict(kops.launches)
+                            tag = (f"mesh {spec} overlap_gather={overlap} {name} "
+                                   f"{short[str(dtype)]}")
+                            if launches != {"bsr_spmv": 1, "bsr_spmm": 1, "bsr_sdd": 0}:
+                                raise AssertionError(f"{tag}: launches {launches}")
+                            if not (type(got) is torch.Tensor and type(gotm) is torch.Tensor):
+                                raise AssertionError(f"{tag}: not a full tensor")
+                            worst = max(worst,
+                                        check(f"{tag} spmv vs the host loop", got, y, dtype),
+                                        check(f"{tag} spmm vs the host loop", gotm, ym, dtype))
+                            if name == "u" and dtype == torch.float32:
+                                for kname, k, rhs in (("bsr_spmv", ks, x), ("bsr_spmm", km, X)):
+                                    ms = median_ms(lambda: k(val, rhs), args.reps, flush)
+                                    print(f"  {kname} {tag}: fn(val, x) ms={ms:.4f}")
+                                    mk = (f"shard_mesh_{'2d' if spec != 1 else '1d'}_"
+                                          f"{'ring' if overlap else 'allgather'}_u_f32_ms")
+                                    keys[kname][mk] = ms
+                            del ks, km, got, gotm
+                keys["bsr_spmv"]["shard_mesh_max_abs_err"] = worst
+
+            print("phase 15d: warm_matmul_plans(mesh=make_staging_mesh(1)) over "
+                  "llama3-8b-sable's FFN patterns")
+            tp = temp_plans(m)
+            with tp:
+                tlin = m["tlin"]
+                pats = list(m["tlayers"].sable_patterns(
+                    m["get_config"]("llama3-8b-sable")).values())
+                mesh = make_staging_mesh(1)
+                tautotune.reset_autotune_stats()
+                out = tlin.warm_matmul_plans(pats, mesh=mesh, device=dev)
+                cold = tautotune.autotune_stats()["benchmarks"]
+                plans_dir = os.path.join(tp.tmp.name, "plans")
+                names = sorted(os.listdir(plans_dir))
+                for p in pats:
+                    h = tlin.pattern_hash(p)
+                    rec = m["tcache"].default_cache().load_plan(
+                        m["tcache"].plan_key("linear", h, m["tcache"].device_key(dev), shard_id=0,
+                                             num_shards=1))
+                    ok = (rec is not None and rec.source == "inherited"
+                          and rec.options.backend == out[h] == out[f"{h}@s0of1"])
+                    print(f"  pattern {h}: base {out[h]}, shard 0 of 1 "
+                          f"{rec.options.backend if rec else None} ({rec.source if rec else None}) "
+                          f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"shard plan of {h} does not inherit the base")
+                tlin._STRATEGY_REGISTRY.clear()  # a restart
+                tautotune.reset_autotune_stats()
+                again = tlin.warm_matmul_plans(pats, mesh=mesh, device=dev)
+                warm = tautotune.autotune_stats()["benchmarks"]
+                same = sorted(os.listdir(plans_dir)) == names
+                print(f"  cold: benchmarks={cold} (the base patterns' candidates alone); "
+                      f"restart: benchmarks={warm}, no plan written: {same}")
+                # the card measures grouped against cuda; the CPU has grouped alone
+                base = (2 if dev.type == "cuda" else 0) * len(pats)
+                if cold != base or warm or not same or again != out:
+                    raise AssertionError("plan warming over the mesh benchmarked a shard key "
+                                         "or the restart did work again")
+                keys["bsr_spmm"].update(shard_warm_cold_benchmarks=cold,
+                                        shard_warm_restart_benchmarks=warm)
+        finally:
+            dist.destroy_process_group()
+    del inputs, host, flush
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t_start:.1f} s")
+    return keys
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4049,6 +4358,9 @@ def main() -> int:
 
     # -- phase 14 ----------------------------------------------------------
     phase_encdec(args, torch, kops, dev)
+
+    # -- phase 15 ----------------------------------------------------------
+    shard_keys = phase_sharded(args, torch, kops, kref, mats, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -4088,6 +4400,7 @@ def main() -> int:
         extra.update(moe_serve_keys.get(kname, {}))  # phase 11: llama4-scout, DeepSeek-V2
         extra.update(mamba_keys.get(kname, {}))  # phase 12: jamba
         extra.update(train_keys.get(kname, {}))  # phase 13: the backward's tables, training
+        extra.update(shard_keys.get(kname, {}))  # phase 15: sharded staging
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

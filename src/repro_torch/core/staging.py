@@ -24,8 +24,9 @@ Stage 1  the descriptors become a specialized PyTorch function. Backends:
                        ``core.autotune`` and persist the winner on disk
                        (``core.cache``) keyed by structure hash + device.
 
-         The sharded path (``mesh=``/``shards=``) belongs to a later slice
-         of the port and raises ``NotImplementedError``.
+         With ``mesh=`` or ``shards=`` the block rows are split into
+         nnz-balanced shards, each staged as its own kernel
+         (``core/sharded.py``: a host loop, or a ``torch.distributed`` mesh).
 Stage 2  PyTorch runs eagerly: there is no program to compile. The kernels
          are built at first use; ``compile()`` records that build and the
          first call. Staged functions are cached keyed by the *structure
@@ -449,12 +450,15 @@ def _cached(kind, vbr, opts, hints, n_cols=None, device=None) -> StagedKernel:
     return kern
 
 
-def _no_sharding(mesh, shards) -> None:
-    if mesh is not None or shards is not None:
-        raise NotImplementedError(
-            "sharded staging (mesh=/shards=) is not ported yet; it comes with "
-            "the sharding slice (core/sharded.py on torch.distributed)"
-        )
+def _sharded(kind, vbr, opts, value_hints, n_cols, device, mesh, shards, shard_axis,
+             model_axis, shard_strategy, overlap_gather):
+    from .sharded import ShardedStagedKernel
+
+    return ShardedStagedKernel(
+        kind, vbr, opts, num_shards=shards, mesh=mesh, shard_axis=shard_axis,
+        model_axis=model_axis, strategy=shard_strategy, hints=value_hints, n_cols=n_cols,
+        overlap_gather=overlap_gather, device=device,
+    )
 
 
 def stage_spmv(
@@ -465,8 +469,22 @@ def stage_spmv(
     device=None,
     mesh=None,
     shards: Optional[int] = None,
+    shard_axis: str = "shards",
+    model_axis: str = "model",
+    shard_strategy: str = "lpt",
+    overlap_gather: bool = True,
 ):
-    """Stage a pattern-specialized SpMV kernel on ``device`` (None = cuda)."""
+    """Stage a pattern-specialized SpMV kernel on ``device`` (None = cuda).
+
+    With ``mesh=`` (a ``DeviceMesh`` of ``launch.mesh.make_staging_mesh``)
+    or ``shards=N``, the block rows are partitioned into nnz-balanced
+    shards, each staged for its own block-size distribution, and the call
+    runs across the mesh's ranks (``shards=`` alone: a host loop of the
+    same split on ``device``). Returns a
+    :class:`~repro_torch.core.sharded.ShardedStagedKernel` in that case.
+    ``overlap_gather`` (default on) gathers the output over a send/recv
+    ring instead of one all-gather.
+    """
     if opts.backend == "dia_hybrid":
         if mesh is not None or shards is not None:
             raise ValueError(
@@ -477,7 +495,9 @@ def stage_spmv(
         from ..kernels.dia_hybrid import stage_dia_hybrid
 
         return stage_dia_hybrid(vbr, opts=opts, device=device)
-    _no_sharding(mesh, shards)
+    if mesh is not None or shards is not None:
+        return _sharded("spmv", vbr, opts, value_hints, None, device, mesh, shards,
+                        shard_axis, model_axis, shard_strategy, overlap_gather)
     if opts.backend == "autotune":
         from .autotune import autotune_stage
 
@@ -496,11 +516,20 @@ def stage_spmm(
     device=None,
     mesh=None,
     shards: Optional[int] = None,
+    shard_axis: str = "shards",
+    model_axis: str = "model",
+    shard_strategy: str = "lpt",
+    overlap_gather: bool = True,
 ):
-    """Stage a pattern-specialized SpMM kernel on ``device`` (None = cuda)."""
+    """Stage a pattern-specialized SpMM kernel on ``device`` (None = cuda);
+    ``mesh=``/``shards=`` as in :func:`stage_spmv`. On a 2-D (shards x
+    model) mesh the RHS columns are partitioned over the model axis
+    (``n_cols`` must divide evenly)."""
     if opts.backend == "dia_hybrid":
         raise ValueError("backend='dia_hybrid' is SpMV-only")
-    _no_sharding(mesh, shards)
+    if mesh is not None or shards is not None:
+        return _sharded("spmm", vbr, opts, value_hints, n_cols, device, mesh, shards,
+                        shard_axis, model_axis, shard_strategy, overlap_gather)
     if opts.backend == "autotune":
         from .autotune import autotune_stage
 

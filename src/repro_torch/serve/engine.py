@@ -73,15 +73,6 @@ def _has_sparse_ffn(params, patterns) -> bool:
     )
 
 
-def _pattern_plan_keys(pattern, device: torch.device) -> list:
-    """Every plan-cache key a deployment of ``pattern`` on ``device``
-    touches (the base key; per-shard keys come with the sharding slice)."""
-    from ..core import cache as cachelib
-    from ..sparse.linear import pattern_hash
-
-    return [cachelib.plan_key("linear", pattern_hash(pattern), cachelib.device_key(device))]
-
-
 class ServeEngine:
     def __init__(
         self,
@@ -94,14 +85,18 @@ class ServeEngine:
         device=None,
     ):
         """``params`` lie on ``device`` (None = the card). ``tune_mode`` is
-        the plan warmup's: "measure" or "predict" (the cost model)."""
+        the plan warmup's: "measure" or "predict" (the cost model). With
+        ``mesh=`` (a staging mesh of ``launch.mesh``) the warmup resolves
+        every shard's plan key too, so a sharded deployment restarts with
+        zero benchmarks; a mesh with no shard axis warms the base plans."""
         if tune_mode not in ("measure", "predict"):
             raise ValueError(f"unknown tune_mode {tune_mode!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=) is not ported yet; it comes with the sharding slice"
-            )
+            from ..core.sharded import shard_count
+
+            shard_count(mesh)  # a TypeError for anything but a named DeviceMesh
         self.cfg = cfg
+        self.mesh = mesh
         self.params = params
         self.max_len = max_len
         self.tune_mode = tune_mode
@@ -113,7 +108,7 @@ class ServeEngine:
             from ..core import cache as cachelib
             from ..core import cost_model as cmlib
             from ..models.layers import sable_patterns
-            from ..sparse.linear import warm_matmul_plans
+            from ..sparse.linear import pattern_plan_keys, warm_matmul_plans
 
             pats = sable_patterns(cfg)
             if _has_sparse_ffn(params, pats):
@@ -122,7 +117,7 @@ class ServeEngine:
                 warm_start = all(
                     store.has_plan(k)
                     for p in self.patterns
-                    for k in _pattern_plan_keys(p, self.device)
+                    for k in pattern_plan_keys(p, self.device, mesh)
                 )
                 before = store.stats()["plans"]
                 predicted_before = cmlib.cost_model_stats()["plans_predicted"]
@@ -131,7 +126,7 @@ class ServeEngine:
                 # tune_mode="predict", resolves from the cost model where it
                 # is confident
                 self.sparse_plans = warm_matmul_plans(
-                    self.patterns, mode=tune_mode, device=self.device
+                    self.patterns, mesh=mesh, mode=tune_mode, device=self.device
                 )
                 self.warmup_stats = {
                     "warm_start": warm_start,
@@ -166,12 +161,13 @@ class ServeEngine:
     # request-level serving (continuous batching over the paged cache)
     # ------------------------------------------------------------------ #
     def make_scheduler(self, *, max_len=None, **kw):
-        """A ContinuousBatchingScheduler on this engine's model and device.
+        """A ContinuousBatchingScheduler on this engine's model, device and mesh.
         kwargs pass through (page_size, num_pages, max_batch, policy,
         clock, plan_cache, record_logits, prefix_sharing, chunked_prefill,
         prefill_chunk, ...)."""
         from .scheduler import ContinuousBatchingScheduler
 
+        kw.setdefault("mesh", self.mesh)
         return ContinuousBatchingScheduler(
             self.cfg, self.params, max_len=self.max_len if max_len is None else max_len,
             device=self.device, **kw,

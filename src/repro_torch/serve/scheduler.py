@@ -162,10 +162,9 @@ class ContinuousBatchingScheduler:
         if policy not in ("fcfs", "warm_first"):
             raise ValueError(f"unknown admission policy {policy!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatchingScheduler(mesh=) is not ported yet; it comes with the "
-                "sharding slice"
-            )
+            from ..core.sharded import shard_count
+
+            shard_count(mesh)  # a TypeError for anything but a named DeviceMesh
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -177,6 +176,7 @@ class ContinuousBatchingScheduler:
         self.cold_cost_scoring = bool(cold_cost_scoring)
         self._stage_cost_model = False  # False = not resolved yet
         self.clock = clock if clock is not None else time.perf_counter
+        self.mesh = mesh
         self.plan_cache = plan_cache
         self.record_logits = record_logits
         self.prefix_sharing = bool(prefix_sharing)
@@ -275,11 +275,9 @@ class ContinuousBatchingScheduler:
     # plan-warm admission
     # ------------------------------------------------------------------ #
     def _plan_keys(self, pattern) -> List[str]:
-        from ..core import cache as cachelib
-        from ..sparse.linear import pattern_hash
+        from ..sparse.linear import pattern_plan_keys
 
-        return [cachelib.plan_key("linear", pattern_hash(pattern),
-                                  cachelib.device_key(self.device))]
+        return pattern_plan_keys(pattern, self.device, self.mesh)
 
     def _store(self):
         from ..core import cache as cachelib
@@ -352,7 +350,8 @@ class ContinuousBatchingScheduler:
                 cold = [k for k in keys if not store.has_plan(k)]
                 if not cold:
                     continue
-                warm_matmul_plans([p], cache=self.plan_cache, device=self.device)
+                warm_matmul_plans([p], cache=self.plan_cache, mesh=self.mesh,
+                                  device=self.device)
                 self.stats["plans_staged"] += sum(1 for k in cold if store.has_plan(k))
                 ev["staged"].append(h)
                 budget -= 1

@@ -25,7 +25,9 @@ forward is K2 and whose backward is the reference's ``_pallas_matmul_bwd``,
 a gather and two einsums in plain PyTorch (the reference, too, computes it
 outside any kernel); ``grouped`` and ``fixed_block`` differentiate through
 the ``bsr_ops`` family, ``dia_hybrid`` through its einsum and ``grouped``.
-``mesh=`` and ``shard=`` raise until the sharding slice.
+``shard=(i, n)`` keys a per-shard plan (``...-s{i}of{n}``); ``mesh=``
+warms every shard's key of a mesh from one measured base and dispatches a
+rank on its own shard's plan.
 """
 from __future__ import annotations
 
@@ -365,7 +367,7 @@ _MATMUL_IMPLS = {
     "fixed_block": _fixed_block_matmul,
     "dia_hybrid": _dia_hybrid_matmul,
 }
-# "<pattern hash>@<device key>[@rb]" -> strategy name, resolved once per
+# "<pattern hash>@<device key>[@s{i}of{n}][@rb]" -> strategy name, resolved once per
 # process; the device key is part of it, as it is of the on-disk plan key
 _STRATEGY_REGISTRY: dict[str, str] = {}
 
@@ -393,12 +395,12 @@ def pattern_hash(pattern: BlockPattern) -> str:
     return h.hexdigest()[:16]
 
 
-def _no_sharding(mesh, shard) -> None:
-    if mesh is not None or shard is not None:
-        raise NotImplementedError(
-            "sharded sparse matmuls (mesh=/shard=) are not ported yet; they come with "
-            "the sharding slice (torch.distributed)"
-        )
+def _registry_key(phash: str, dkey: str, shard) -> str:
+    return f"{phash}@{dkey}" + ("" if shard is None else f"@s{shard[0]}of{shard[1]}")
+
+
+def _shard_kw(shard) -> dict:
+    return {} if shard is None else {"shard_id": shard[0], "num_shards": shard[1]}
 
 
 def _pattern_meta(pattern: BlockPattern) -> dict:
@@ -446,11 +448,12 @@ def choose_matmul_strategy(
     ``dia_hybrid`` candidate where ``core.inspect.detect_pattern`` finds a
     diagonal band; its plans sit under the ``rb`` key segment.
     ``allow_bench=False`` takes the device's heuristic (the last candidate)
-    without storing it, so a later call can still measure.
+    without storing it, so a later call can still measure. ``shard=(i, n)``
+    resolves the plan of shard ``i`` of ``n`` (registry key
+    ``<hash>@<device>@s{i}of{n}``, plan key ``...-s{i}of{n}``).
     """
     if mode not in ("measure", "predict"):
         raise ValueError(f"unknown strategy mode {mode!r}")
-    _no_sharding(None, shard)
     from ..core import cache as cachelib
     from ..core.staging import StagingOptions
 
@@ -462,11 +465,11 @@ def choose_matmul_strategy(
             return "fixed_block"
     dev = resolve_device(device)
     dkey = cachelib.device_key(dev)
-    reg_key = f"{phash}@{dkey}" + ("@rb" if include_dia else "")
+    reg_key = _registry_key(phash, dkey, shard) + ("@rb" if include_dia else "")
     found = _STRATEGY_REGISTRY.get(reg_key)
     if found is not None:
         return found
-    key = cachelib.plan_key("linear", phash, dkey, reblock=include_dia)
+    key = cachelib.plan_key("linear", phash, dkey, **_shard_kw(shard), reblock=include_dia)
     store = cache if cache is not None else cachelib.default_cache()
     plan = store.load_plan(key)
     if plan is not None:
@@ -534,10 +537,54 @@ def choose_matmul_strategy(
     if source == "measured" or len(candidates) == 1:
         store.store_plan(key, cachelib.TuningPlan(
             kind="linear", structure_hash=phash, options=opts(backend=best), device=dkey,
-            timings=timings, meta=meta, source=source,
+            timings=timings, meta={**meta, **_shard_kw(shard)}, source=source,
         ))
         _STRATEGY_REGISTRY[reg_key] = best
     return best
+
+
+def _seed_shard_strategy(pattern: BlockPattern, shard, strategy: str, cache=None,
+                         device=None) -> str:
+    """Record ``strategy`` under a per-shard plan key WITHOUT benchmarking
+    (the device measured the full pattern once; a shard sees the same
+    pattern, so the winner is inherited). A plan already stored under the
+    shard key (e.g. measured on that device of a mixed pool) wins over the
+    inherited default."""
+    from ..core import cache as cachelib
+    from ..core.staging import StagingOptions
+
+    phash = pattern_hash(pattern)
+    dkey = cachelib.device_key(resolve_device(device))
+    reg_key = _registry_key(phash, dkey, shard)
+    found = _STRATEGY_REGISTRY.get(reg_key)
+    if found is not None:
+        return found
+    key = cachelib.plan_key("linear", phash, dkey, **_shard_kw(shard))
+    store = cache if cache is not None else cachelib.default_cache()
+    plan = store.load_plan(key)
+    if plan is None:
+        plan = cachelib.TuningPlan(
+            kind="linear", structure_hash=phash,
+            options=StagingOptions(backend=strategy, tile=(pattern.tm, pattern.tk)),
+            device=dkey, meta=_shard_kw(shard), source="inherited",
+        )
+        store.store_plan(key, plan)
+    _STRATEGY_REGISTRY[reg_key] = plan.options.backend
+    return plan.options.backend
+
+
+def pattern_plan_keys(pattern: BlockPattern, device, mesh=None) -> list:
+    """Every plan-cache key a deployment of ``pattern`` on ``device``
+    touches: the base key plus the per-shard keys when ``mesh`` has a shard
+    axis (the keys ``warm_matmul_plans`` resolves; the engine and the
+    scheduler check this set for a warm start)."""
+    from ..core import cache as cachelib
+    from ..core.sharded import shard_count
+
+    h, dkey = pattern_hash(pattern), cachelib.device_key(resolve_device(device))
+    n = 0 if mesh is None else shard_count(mesh)
+    return [cachelib.plan_key("linear", h, dkey, **_shard_kw(s))
+            for s in [None] + [(i, n) for i in range(n)]]
 
 
 def warm_matmul_plans(patterns, batch: int = 8, cache=None, mesh=None,
@@ -545,8 +592,15 @@ def warm_matmul_plans(patterns, batch: int = 8, cache=None, mesh=None,
                       device=None) -> dict:
     """Resolve strategies for many patterns before serving (the
     ``ServeEngine`` startup hook). Returns {hash: strategy}.
+
+    With ``mesh=`` the per-shard plan keys of the mesh's shard axis are
+    resolved too (``<hash>@s{i}of{n}``): the winner is measured ONCE per
+    pattern and inherited by every shard (no per-shard benchmark); a
+    per-shard plan already on disk overrides it.
     ``mode="predict"`` loads or fits the cost model once for all of them."""
-    _no_sharding(mesh, None)
+    from ..core.sharded import shard_count
+
+    n = 0 if mesh is None else shard_count(mesh)
     model = None
     if mode == "predict":
         from ..core import cache as cachelib
@@ -554,13 +608,17 @@ def warm_matmul_plans(patterns, batch: int = 8, cache=None, mesh=None,
 
         store = cache if cache is not None else cachelib.default_cache()
         model = cmlib.load_or_fit(store, cachelib.device_key(resolve_device(device)), "linear")
-    return {
-        pattern_hash(p): choose_matmul_strategy(
+    out = {}
+    for p in patterns:
+        base = choose_matmul_strategy(
             p, batch=batch, cache=cache, mode=mode, cost_model=model,
             include_dia=include_dia, device=device,
         )
-        for p in patterns
-    }
+        out[pattern_hash(p)] = base
+        for i in range(n):
+            out[f"{pattern_hash(p)}@s{i}of{n}"] = _seed_shard_strategy(
+                p, (i, n), base, cache=cache, device=device)
+    return out
 
 
 def sparse_matmul_auto(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPattern,
@@ -568,7 +626,18 @@ def sparse_matmul_auto(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPatte
     """Plan-dispatched sparse matmul on x's device. A pattern with no plan
     yet is measured here (eagerly, as the reference measures outside
     ``jit``); ``warm_matmul_plans`` resolves a model's patterns ahead of
-    serving, so that a forward never measures."""
-    _no_sharding(mesh, shard)
-    strategy = choose_matmul_strategy(pattern, family=family, device=x.device)
+    serving, so that a forward never measures.
+
+    ``shard=(i, n)`` dispatches on shard ``i``'s plan. With ``mesh=`` (and
+    no ``shard``) this rank's shard of the mesh's shard axis picks the
+    plan; the result is the full product either way (the reference's
+    ``out_model`` layout comes with the model-sharding slice)."""
+    if shard is None and mesh is not None:
+        from ..core.sharded import resolve_shard_axis, shard_count
+
+        n = shard_count(mesh)
+        if n:
+            axis = resolve_shard_axis(mesh)
+            shard = (int(mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)]), n)
+    strategy = choose_matmul_strategy(pattern, family=family, device=x.device, shard=shard)
     return _MATMUL_IMPLS[strategy](x, tiles, pattern)

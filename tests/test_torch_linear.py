@@ -240,16 +240,19 @@ def test_family_churn_takes_fixed_block_without_caching(plan_dir):
         **TOL)
 
 
-def test_left_out_parts_raise():
-    """Sharding is a later slice; the CUDA default raises without a card
-    instead of running on the CPU."""
+def test_left_out_parts_raise(plan_dir):
+    """A mesh must be a named DeviceMesh (anything else is a TypeError); a
+    shard's plan sits under its own key; the CUDA default raises without a
+    card instead of running on the CPU."""
     pat = tlin.random_pattern(*PATTERNS["oblong"])
     x, tiles = (torch.as_tensor(a) for a in _inputs(pat))
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tlin.sparse_matmul_auto(x, tiles, pat, mesh=object())
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        tlin.choose_matmul_strategy(pat, shard=(0, 2), device=CPU)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    assert tlin.choose_matmul_strategy(pat, shard=(0, 2), device=CPU) == "grouped"
+    h = tlin.pattern_hash(pat)
+    assert (plan_dir / "plans" / f"linear-{h}-torchcpu-s0of2.json").exists()
+    assert f"{h}@torchcpu@s0of2" in tlin._STRATEGY_REGISTRY
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tlin.warm_matmul_plans([pat], mesh=object(), device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no.*available|none is available"):

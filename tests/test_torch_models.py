@@ -296,8 +296,9 @@ def _shapes(tree):
     return tuple(tree.shape)
 
 
-def test_left_out_parts_raise():
-    """Sharding is a later slice: the sparse FFN's mesh= and shard= raise.
+def test_left_out_parts_raise(plan_dir):
+    """The sparse FFN's mesh= takes a named DeviceMesh alone (anything else
+    is a TypeError) and shard= dispatches on the shard's own plan.
     Cross-attention and the encoder run (tests/test_torch_encdec.py): a
     cross-attention layer without the encoder's output outside a cached
     decode step is a ValueError."""
@@ -307,10 +308,11 @@ def test_left_out_parts_raise():
     p = tlayers.ffn_init(torch.Generator().manual_seed(0), cfg, device=CPU)
     x = torch.zeros((1, 2, cfg.d_model))
     pat = tlayers.sable_patterns(cfg)["in"]
-    for kw in ({"mesh": object()}, {"shard": object()}):
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            tlin.sparse_matmul_auto(x, p["w1"], pat, **kw)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tlin.sparse_matmul_auto(x, p["w1"], pat, mesh=object())
+    torch.testing.assert_close(tlin.sparse_matmul_auto(x, p["w1"], pat, shard=(1, 2)),
+                               tlin.sparse_matmul(x, p["w1"], pat))
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tlin.warm_matmul_plans([pat], mesh=object())
     sm = _f32(tconfigs.get_config("seamless-m4t-large-v2", reduced=True))
     gen = torch.Generator().manual_seed(0)

@@ -539,7 +539,7 @@ def test_cold_cost_scoring_orders_cold_admission(models, plan_dir, scoring):
 # ---------------------------------------------------------------------- #
 def test_mesh_and_left_out_options_raise(models):
     m = models.llama
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ContinuousBatchingScheduler(m.cfg, m.params, max_len=16, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="prefill_chunk"):
         m.eng.make_scheduler(prefill_chunk=0)

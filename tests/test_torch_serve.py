@@ -164,14 +164,14 @@ def test_cli_and_engine_refuse_what_is_left_out(plan_dir, monkeypatch):
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
     eng = tengine.ServeEngine(cfg, params, max_len=8, device=CPU)
     assert eng.serve([])[0] == {}
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         eng.make_scheduler(mesh=object())
     prompt = torch.zeros((1, 2), dtype=torch.long)
     with_src, _ = eng.generate(prompt, 2, src_embeds=np.zeros((1, 2, 4)))
     assert torch.equal(with_src, eng.generate(prompt, 2)[0])
     with pytest.raises(ValueError, match="max_len"):
         eng.generate(torch.zeros((1, 6), dtype=torch.long), 4)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tengine.ServeEngine(cfg, params, max_len=8, mesh=object(), device=CPU)
     with pytest.raises(ValueError, match="tune_mode"):
         tengine.ServeEngine(cfg, params, max_len=8, tune_mode="guess", device=CPU)

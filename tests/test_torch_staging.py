@@ -185,12 +185,28 @@ def test_auto_backend_is_grouped_on_cpu_and_tensors_stay_put():
     dict(shards=2),
     dict(mesh=object()),
 ])
-def test_later_slices_raise_not_implemented(kwargs):
-    v, _ = _fixture("banded")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        stage_spmv(v, device=CPU, **kwargs)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        stage_spmm(v, 6, device=CPU, **kwargs)
+def test_later_slices_raise_not_implemented(kwargs, tmp_path, monkeypatch):
+    """The sharded path is ported: shards= runs the host loop, equal to the
+    unsharded call, and mesh= takes a named DeviceMesh alone."""
+    from repro_torch.core import cache as tcache
+
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))  # the shard plan's record
+    monkeypatch.setattr(tcache, "_DEFAULT", None)
+    monkeypatch.setattr(tcache, "_DEFAULT_EXPLICIT", False)
+    v, f = _fixture("banded")
+    if "mesh" in kwargs:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            stage_spmv(v, device=CPU, **kwargs)
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            stage_spmm(v, 6, device=CPU, **kwargs)
+        return
+    X = f["X"]
+    np.testing.assert_allclose(_np(stage_spmv(v, device=CPU, **kwargs)(f["val"], f["x"])),
+                               _np(stage_spmv(v, device=CPU)(f["val"], f["x"])),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(stage_spmm(v, 6, device=CPU, **kwargs)(f["val"], X)),
+                               _np(stage_spmm(v, 6, device=CPU)(f["val"], X)),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_unknown_backend_and_prepack_with_coo_tail_raise():
