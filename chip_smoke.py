@@ -288,6 +288,29 @@ Phases, each printing its lines:
             measured base without a benchmark, and a restart benchmarks
             nothing. A one-rank group exchanges nothing: the exchange
             between ranks is checked on the CPU (tests/test_torch_sharded.py).
+16. model   drives model sharding (distributed/{sharding,ctx}.py, the
+            sharded train step, DTensor checkpoints, the CLI's --devices)
+            in a one-rank NCCL group (file:// store under build/), torn
+            down after: (a) llama3-8b-sable at its published widths cut to
+            8 layers (float32 params and AdamW, bfloat16 compute, remat
+            "dots", FFN pinned to cuda), 3 steps unsharded and 3 steps of
+            make_train_step(mesh=make_local_mesh(("pod", "data",
+            "model"), (1, 1, 1))) with DTensor params from make_shardings,
+            from the same seed and batches: once under deterministic
+            algorithms (the backward's index_add_ and embedding gradient
+            sum with atomics otherwise), losses and grad_norm within 1e-6
+            relative (bit for bit is reported), and once as the step runs
+            (ms a step and peak memory both ways); K2's launches the same
+            both ways; (b) DeepSeek-V2 at full width, its dense layer 0 and
+            one MoE layer in bfloat16, forward_train under
+            activation_sharding on a (1, 1) ("data", "model") mesh against
+            the unsharded forward, dropless and on the capacity path: the
+            logits within bfloat16's tolerance, K3/K2 launches equal; (c)
+            (a)'s sharded state saved from DTensors, restored unsharded and
+            with shardings=, bit for bit; (d) the training CLI with
+            --devices 1, then --resume. A one-rank group exchanges nothing:
+            the exchange between ranks is checked on the CPU
+            (tests/test_torch_model_sharding.py).
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -316,7 +339,8 @@ FFN shapes and train_cut_* for 13c; shard_{u,nu}_{f32,bf16}_* for K1 and K2
 in 15a: the sharded call, the unsharded call, the shard tables' kernels,
 plain versions, library calls and bounds summed, launches, imbalance;
 shard_contiguous_*, shard_mesh_*, shard_tune_* and shard_warm_* for the
-rest of phase 15) and
+rest of phase 15; shard_train_* and shard_ckpt_* on K2 for 16a and 16c,
+shard_moe_{dropless,capacity}_launches on K2 and K3 for 16b) and
 {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
@@ -4207,6 +4231,243 @@ def phase_sharded(args, torch, kops, kref, mats, dev):
     return keys
 
 
+# ---------------------------------------------------------------------- #
+# phase 16: model sharding (DP/FSDP/TP/EP) in a one-rank group
+# ---------------------------------------------------------------------- #
+MS_STEPS = 3  # 16a: steps each way
+MS_TOL = 1e-6  # 16a: losses and grad_norm, sharded vs unsharded, relative
+MS_B, MS_S = 4, 512  # 16b: DeepSeek-V2's forward, at phase 11c's prefill shape
+
+
+def ms_state(torch, tree) -> float:
+    from repro_torch.tree import tree_leaves
+
+    return sum(nbytes(t.to_local() if hasattr(t, "to_local") else t)
+               for t in tree_leaves(tree)) / 1e9
+
+
+def ms_train(args, torch, kops, m, dev, mesh, pc):
+    """16a: llama3-8b-sable at its published widths cut to TRAIN_LAYERS
+    layers, MS_STEPS steps unsharded and MS_STEPS steps of
+    ``make_train_step(mesh=)`` from the same seed and batches (params and
+    AdamW state DTensors), once under deterministic algorithms (compared)
+    and once without (timed); 16c: the timed sharded state saved and
+    restored both ways. Returns the kernels line's keys."""
+    import tempfile
+
+    from repro_torch.checkpoint.manager import restore_checkpoint, save_checkpoint
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.distributed.sharding import distribute, make_shardings, opt_state_specs
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train import step as tstep
+    from repro_torch.train.loop import TrainLoop
+    from repro_torch.tree import tree_leaves, tree_map
+
+    ttr = m["ttr"]
+    cfg = replace(train_model(m, TRAIN_LAYERS), remat="dots")
+    pin_strategy(m, list(m["tlayers"].sable_patterns(cfg).values()), "cuda", dev)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    print(f"phase 16a: llama3-8b-sable at its published widths cut to {TRAIN_LAYERS} layers "
+          f"(params {cfg.param_dtype}, compute {cfg.compute_dtype}, remat {cfg.remat!r}, FFN "
+          f"pinned to cuda), {MS_STEPS} steps of {TRAIN_B} x {TRAIN_S} unsharded, then on "
+          f"make_local_mesh(('pod', 'data', 'model'), (1, 1, 1)) with DTensor params and "
+          f"AdamW state (one rank: the DTensor and collective glue, not the exchange)")
+    shard = {}
+
+    def run(name, deterministic):
+        """MS_STEPS steps from seed args.seed: (record, params, opt, loop)."""
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = ttr.init_params(cfg, gen, device=dev)
+        if name == "sharded":
+            shard["params"] = make_shardings(mesh, pc, param_specs(cfg, params), params)
+            params = distribute(params, shard["params"])
+        opt = adamw_init(params, opt_cfg)
+        step = tstep.make_train_step(cfg, opt_cfg, pc, mesh=mesh if name == "sharded" else None)
+        loop = TrainLoop(step, SyntheticDataset(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=args.seed))
+        norms = []
+        prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kops.reset_launches()
+            for _ in range(MS_STEPS):
+                params, opt, metrics = loop.run(params, opt, 1, log_every=0)
+                norms.append(float(metrics["grad_norm"]))
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(prev)
+        rec = dict(losses=list(loop.losses), norms=norms, k2=kops.launches["bsr_spmm"],
+                   peak=torch.cuda.max_memory_allocated() / 1e9,
+                   ms=statistics.median(loop.monitor.times[1:]) * 1e3)
+        print(f"  {name}{', deterministic algorithms' if deterministic else ''}: losses "
+              f"{['%.7f' % v for v in rec['losses']]} grad_norm {['%.7f' % v for v in norms]}; "
+              f"K2 launches {rec['k2']} ({rec['k2'] // MS_STEPS} a step); step ms (median of "
+              f"steps 2-{MS_STEPS}, host clock to the loss)={rec['ms']:.2f} peak device "
+              f"memory={rec['peak']:.3f} GB")
+        return rec, params, opt, loop
+
+    # the backward's index_add_ and embedding gradient sum with atomics: two
+    # unsharded runs differ in the last bits, and training grows that; so
+    # the comparison runs under deterministic algorithms, the times without
+    runs = {}
+    for deterministic in (True, False):
+        for name in ("unsharded", "sharded"):
+            rec, params, opt, loop = run(name, deterministic)
+            runs[(name, deterministic)] = rec
+            if name == "unsharded" or deterministic:
+                del params, opt, loop
+                torch.cuda.empty_cache()
+    (u, sh), (ut, st) = ((runs[("unsharded", d)], runs[("sharded", d)]) for d in (True, False))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sh["losses"] + sh["norms"],
+                                                    u["losses"] + u["norms"]))
+    same = sh["losses"] == u["losses"] and sh["norms"] == u["norms"]
+    ok = rel <= MS_TOL and sh["k2"] == u["k2"] == st["k2"] == ut["k2"] > 0
+    print(f"  sharded vs unsharded, deterministic: losses and grad_norm max rel {rel:.3e} (tol "
+          f"{MS_TOL:g}; bit for bit: {same}); K2 launches {sh['k2']} vs {u['k2']} ({st['k2']} "
+          f"vs {ut['k2']} timed); step ms {st['ms']:.2f} vs {ut['ms']:.2f}, peak GB "
+          f"{st['peak']:.3f} vs {ut['peak']:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 16a: the sharded step differs from the unsharded one")
+    sh, u = st, ut
+
+    # 16c: the DTensor state saved, restored unsharded and with shardings=
+    tree = {"params": params, "opt": opt}
+    shardings = {"params": shard["params"], "opt": make_shardings(
+        mesh, pc, opt_state_specs(cfg, params, opt), opt)}
+    with tempfile.TemporaryDirectory(prefix="repro-shard-ckpt-") as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, loop.step, tree)
+        save_s = time.perf_counter() - t0
+        like = tree_map(lambda t: t.to_local() if hasattr(t, "to_local") else t, tree)
+        t0 = time.perf_counter()
+        plain, step_no, _ = restore_checkpoint(tmp, like)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same_plain = step_no == loop.step and all(
+            type(a) is torch.Tensor and a.dtype == b.dtype
+            and torch.equal(a, b.full_tensor() if hasattr(b, "full_tensor") else b)
+            for a, b in zip(tree_leaves(plain), tree_leaves(tree)))
+        del plain, like
+        t0 = time.perf_counter()
+        back, _, _ = restore_checkpoint(tmp, tree, shardings=shardings)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        same_shard = all(
+            hasattr(a, "placements") and a.placements == b.placements and torch.equal(
+                a.to_local(), b.to_local())
+            for a, b in zip(tree_leaves(back["params"]), tree_leaves(params)))
+        same_shard &= all(torch.equal(a.to_local() if hasattr(a, "to_local") else a,
+                                      b.to_local() if hasattr(b, "to_local") else b)
+                          for a, b in zip(tree_leaves(back["opt"]), tree_leaves(opt)))
+    print(f"  16c: checkpoint of the sharded state ({ms_state(torch, tree):.3f} GB) at step "
+          f"{loop.step}: save {save_s:.2f} s; restore unsharded {plain_s:.2f} s, bit for bit "
+          f"{same_plain}; restore with shardings= {shard_s:.2f} s, layouts and blocks bit for "
+          f"bit {same_shard} {'ok' if same_plain and same_shard else 'FAIL'}")
+    if not (same_plain and same_shard):
+        raise AssertionError("phase 16c: the checkpoint round trip differs")
+    del tree, back, params, opt, loop
+    torch.cuda.empty_cache()
+    return dict(shard_train_step_ms=sh["ms"], shard_train_plain_step_ms=u["ms"],
+                shard_train_peak_gb=sh["peak"], shard_train_plain_peak_gb=u["peak"],
+                shard_train_launches=sh["k2"], shard_train_plain_launches=u["k2"],
+                shard_train_rel=rel, shard_ckpt_save_s=save_s,
+                shard_ckpt_restore_plain_s=plain_s, shard_ckpt_restore_sharded_s=shard_s)
+
+
+def ms_moe(args, torch, kops, m, dev, pc):
+    """16b: DeepSeek-V2 at full width, its dense layer 0 and one MoE layer,
+    bfloat16: ``forward_train`` under ``activation_sharding`` on a (1, 1)
+    ("data", "model") mesh against the unsharded forward, dropless and on
+    the capacity path. Returns {kernel: keys}."""
+    from repro_torch.distributed.ctx import activation_sharding, local_view
+    from repro_torch.distributed.sharding import distribute, make_shardings, param_specs
+    from repro_torch.launch.mesh import make_local_mesh
+
+    ttr = m["ttr"]
+    mesh = make_local_mesh(("data", "model"), (1, 1))
+    cfg = moe_model(DS, 1, "bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 16)
+    params = ttr.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (MS_B, MS_S), generator=gen, device=dev)
+    dparams = distribute(params, make_shardings(mesh, pc, param_specs(cfg, params), params))
+    view, _ = local_view(dparams)
+    print(f"phase 16b: {DS} at full width, its dense layer 0 and 1 MoE layer, bfloat16 "
+          f"({param_counts(cfg, params)}), forward_train of {MS_B} x {MS_S} tokens under "
+          f"activation_sharding on make_local_mesh(('data', 'model'), (1, 1))")
+    keys = {"bsr_sdd": {}, "bsr_spmm": {}}
+    for path, dropless in (("dropless", True), ("capacity", False)):
+        c = replace(cfg, moe=replace(cfg.moe, dropless=dropless))
+        counts = {}
+        with torch.no_grad():
+            for name in ("unsharded", "sharded"):
+                kops.reset_launches()
+                if name == "sharded":
+                    with activation_sharding(mesh, pc):
+                        logits, aux = ttr.forward_train(view, c, {"tokens": tokens})
+                else:
+                    logits, aux = ttr.forward_train(params, c, {"tokens": tokens})
+                torch.cuda.synchronize()
+                counts[name] = (kops.launches["bsr_sdd"], kops.launches["bsr_spmm"], logits,
+                                float(aux))
+                del logits
+        (k3u, k2u, lu, au), (k3s, k2s, ls, a_s) = counts["unsharded"], counts["sharded"]
+        _, rel = rel_err(ls, lu)
+        want = (2, 1) if dropless else (0, 0)
+        ok = (rel <= TOL["torch.bfloat16"] and (k3s, k2s) == (k3u, k2u) == want
+              and bool(torch.isfinite(ls.float()).all()) and a_s == au)
+        print(f"  {path}: logits sharded vs unsharded max|err|/max|ref| {rel:.3e} (tol "
+              f"{TOL['torch.bfloat16']:g}; bit for bit: {bool(torch.equal(ls, lu))}), aux "
+              f"{a_s:.6f} vs {au:.6f}; K3/K2 launches {k3s}/{k2s} vs {k3u}/{k2u} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 16b: {path} forward under the mesh differs")
+        keys["bsr_sdd"][f"shard_moe_{path}_launches"] = k3s
+        keys["bsr_spmm"][f"shard_moe_{path}_launches"] = k2s
+        del counts, lu, ls
+    del params, dparams, view, tokens
+    torch.cuda.empty_cache()
+    return keys
+
+
+def phase_model_sharding(args, torch, kops, dev):
+    """Phase 16: model sharding in a one-rank group (NCCL on the card, a
+    file store under build/): 16a the sharded train step, 16b DeepSeek-V2's
+    forward under activation_sharding, 16c the checkpoint round trip, 16d
+    the training CLI with --devices 1. Returns {kernel: keys}."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_start = time.perf_counter()
+    m = serve_modules()
+    pc = ParallelConfig()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    os.makedirs(ROOT / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="pg-") as pg:
+        if dev.type == "cuda":
+            torch.cuda.set_device(torch.cuda.current_device())
+        dist.init_process_group(backend, init_method=f"file://{pg}/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_local_mesh(("pod", "data", "model"), (1, 1, 1))
+            with temp_plans(m):
+                train = ms_train(args, torch, kops, m, dev, mesh, pc)
+            keys = ms_moe(args, torch, kops, m, dev, pc)
+        finally:
+            dist.destroy_process_group()
+    keys["bsr_spmm"].update(train)
+    print("phase 16d: the training CLI with --devices 1 (a one-rank group), then --resume")
+    train_cli("phase 16d", ["--arch", "llama3-8b", "--sable", "--reduced", "--devices", "1"])
+    print(f"phase 16: {time.perf_counter() - t_start:.1f} s")
+    return keys
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4361,6 +4622,9 @@ def main() -> int:
 
     # -- phase 15 ----------------------------------------------------------
     shard_keys = phase_sharded(args, torch, kops, kref, mats, dev)
+
+    # -- phase 16 ----------------------------------------------------------
+    model_shard_keys = phase_model_sharding(args, torch, kops, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -4401,6 +4665,7 @@ def main() -> int:
         extra.update(mamba_keys.get(kname, {}))  # phase 12: jamba
         extra.update(train_keys.get(kname, {}))  # phase 13: the backward's tables, training
         extra.update(shard_keys.get(kname, {}))  # phase 15: sharded staging
+        extra.update(model_shard_keys.get(kname, {}))  # phase 16: model sharding
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

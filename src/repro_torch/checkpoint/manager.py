@@ -15,8 +15,14 @@ checkpoints:
   * **retention**: ``keep_last_k`` garbage collection.
 
 ``restore_checkpoint`` puts each leaf on the device of the leaf it replaces
-in ``tree_like``. ``shardings=`` (elastic restore onto a device mesh)
-raises until the sharding slice.
+in ``tree_like``, or lays it out as that leaf where it is a DTensor.
+
+A tree of DTensors (model sharding) is saved whole, leaf by leaf: every
+rank joins each leaf's gather (``full_tensor``, a collective), rank 0
+alone keeps it and writes it, the others drop it at once, and the ranks
+meet at a barrier. ``restore_checkpoint(shardings=)`` (elastic restore)
+loads each leaf whole on every rank and keeps the block its
+``NamedSharding`` gives it, whatever the mesh's shape at save time.
 """
 from __future__ import annotations
 
@@ -30,8 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..distributed.sharding import no_sharding
-from ..tree import tree_paths, tree_unflatten
+from ..tree import tree_leaves, tree_paths, tree_unflatten
 
 __all__ = ["CheckpointManager", "latest_step", "restore_checkpoint", "save_checkpoint"]
 
@@ -43,12 +48,43 @@ _NATIVE = {
 }
 
 
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
 def _to_host(leaf, copy: bool = False) -> torch.Tensor:
     """A leaf as a CPU tensor, a copy where ``copy`` (numpy arrays and
-    numbers become tensors)."""
+    numbers become tensors; a DTensor is gathered whole: a collective. The
+    whole of a replicated DTensor is its own storage, so ``copy`` holds
+    for it too)."""
+    if _is_dtensor(leaf):
+        with torch.no_grad():
+            return leaf.full_tensor().to("cpu", copy=copy)
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=copy)
     return torch.as_tensor(np.asarray(leaf))
+
+
+def _sharded(tree) -> bool:
+    """A tree of DTensors: every rank gathers, rank 0 writes."""
+    return any(_is_dtensor(leaf) for leaf in tree_leaves(tree))
+
+
+def _writer() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _join_gathers(tree) -> None:
+    """A rank that does not write: join each DTensor leaf's gather, in the
+    writer's order, and keep nothing."""
+    for leaf in tree_leaves(tree):
+        if _is_dtensor(leaf):
+            with torch.no_grad():
+                leaf.full_tensor()
 
 
 def _file_array(host: torch.Tensor):
@@ -63,7 +99,22 @@ def _file_array(host: torch.Tensor):
 
 
 def save_checkpoint(directory: str, step: int, tree, extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save of a tree of tensors."""
+    """Synchronous atomic save of a tree of tensors. Every rank calls it
+    for a tree of DTensors; rank 0 writes each leaf as its gather ends."""
+    if _sharded(tree):
+        import torch.distributed as dist
+
+        if _writer():
+            final = _write(directory, step, tree, extra)
+        else:
+            _join_gathers(tree)
+            final = os.path.join(directory, f"step_{step:08d}")
+        dist.barrier()
+        return final
+    return _write(directory, step, tree, extra)
+
+
+def _write(directory: str, step: int, tree, extra: Optional[dict]) -> str:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(directory, f"step_{step:08d}")
@@ -113,9 +164,12 @@ def _load_leaf(d: str, meta: dict, like) -> torch.Tensor:
 def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None, shardings=None):
     """Restore into the structure of ``tree_like`` (each leaf on its
     like's device, in its dtype, or the stored logical dtype for raw leaves).
-    Returns (tree, step, extra)."""
-    if shardings is not None:
-        no_sharding("restore_checkpoint(shardings=)")
+    ``shardings``: a tree (or flat list) of ``distributed.sharding``'s
+    ``NamedSharding`` for the current mesh: each leaf comes back a DTensor
+    laid out by it (elastic restore); without it a DTensor like-leaf's own
+    layout is kept. Returns (tree, step, extra)."""
+    from torch.distributed.tensor import distribute_tensor
+
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -123,7 +177,23 @@ def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None, sh
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_name = {m["name"]: m for m in manifest["leaves"]}
-    out = [_load_leaf(d, by_name[name], like) for name, like in tree_paths(tree_like)]
+    likes = tree_paths(tree_like)
+    if shardings is None:
+        layouts = [(like.device_mesh, like.placements) if _is_dtensor(like) else None
+                   for _, like in likes]
+    else:
+        from ..distributed.sharding import NamedSharding
+
+        shs = tree_leaves(shardings)
+        if not all(isinstance(s, NamedSharding) for s in shs):
+            raise TypeError("shardings= takes distributed.sharding.NamedSharding leaves")
+        layouts = [(s.mesh, s.placements) for s in shs]
+    out = []
+    for (name, like), layout in zip(likes, layouts):
+        t = _load_leaf(d, by_name[name], like)
+        if layout is not None:  # each rank read the whole leaf: it keeps its block
+            t = distribute_tensor(t, *layout, src_data_rank=None)
+        out.append(t)
     return tree_unflatten(tree_like, out), step, manifest.get("extra", {})
 
 
@@ -138,10 +208,14 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree, extra: Optional[dict] = None):
         """Copy ``tree`` to host memory here, then write it on a background
-        thread (one save in flight)."""
+        thread (one save in flight). For a tree of DTensors every rank
+        joins the gathers here and rank 0 alone keeps the copy."""
         self.wait()
-        host_tree = tree_unflatten(tree, [_to_host(leaf, copy=True) for _, leaf in
-                                          tree_paths(tree)])
+        if _sharded(tree) and not _writer():
+            _join_gathers(tree)
+            return
+        host_tree = tree_unflatten(tree, [_to_host(leaf, copy=True) for leaf in
+                                          tree_leaves(tree)])
 
         def work():
             t0 = time.perf_counter()
@@ -155,7 +229,8 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: Optional[dict] = None):
         self.wait()
         save_checkpoint(self.directory, step, tree, extra)
-        self._gc()
+        if _writer() or not _sharded(tree):
+            self._gc()
 
     def wait(self):
         if self._thread is not None:

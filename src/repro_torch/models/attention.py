@@ -10,6 +10,14 @@ prefill (``cross_kv``) and read at decode. The reference writes the new entries 
 into a cache its decode step donates; the port writes them in place at
 ``cache_pos`` (an int, or a (B,) tensor of per-lane offsets) and returns
 the same dict.
+
+Under ``distributed.ctx.activation_sharding`` GQA and MLA run their heads
+split over the tensor axis where the query heads divide it (each rank's
+heads counted from its local weight's width, ``wo`` row-parallel and an
+all-reduce); GQA key/value heads that do not divide it come from the whole
+projection, each rank taking those its query heads read. Where the query
+heads do not divide, the layer runs whole on every model rank, as
+cross-attention always does.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
+from ..distributed.ctx import MODEL, constrain, fetch, model_input, model_part
 from .config import ModelConfig
 from .layers import dense_init, rmsnorm, rope
 
@@ -144,13 +153,38 @@ def gqa_apply(
     positions): an indexed write on the batch axis, a per-lane mask."""
     B, S, d = x.shape
     H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    part = model_part(H)
+    if part is None:
+        split = None
+        q = (x @ fetch(p["wq"].to(x.dtype))).reshape(B, S, H, Dh)
+        k = (x @ fetch(p["wk"].to(x.dtype))).reshape(B, S, Kv, Dh)
+        v = (x @ fetch(p["wv"].to(x.dtype))).reshape(B, S, Kv, Dh)
+        qn, kn = p.get("qn"), p.get("kn")
+    else:  # this rank's query heads; their key/value heads
+        split, xin = MODEL, model_input(x)
+        wq = fetch(p["wq"].to(x.dtype), None, MODEL)
+        H = wq.shape[-1] // Dh
+        q = (xin @ wq).reshape(B, S, H, Dh)
+        qn = model_input(p["qn"]) if cfg.qk_norm else None
+        if model_part(Kv):
+            wk = fetch(p["wk"].to(x.dtype), None, MODEL)
+            Kv = wk.shape[-1] // Dh
+            k = (xin @ wk).reshape(B, S, Kv, Dh)
+            v = (xin @ fetch(p["wv"].to(x.dtype), None, MODEL)).reshape(B, S, Kv, Dh)
+            kn = model_input(p["kn"]) if cfg.qk_norm else None
+        else:  # every key/value head, then one a query head (G = 1)
+            k = (x @ fetch(p["wk"].to(x.dtype))).reshape(B, S, Kv, Dh)
+            v = (x @ fetch(p["wv"].to(x.dtype))).reshape(B, S, Kv, Dh)
+            if cfg.qk_norm:
+                k = rmsnorm(k, p["kn"], cfg.norm_eps)
+            kv_of = (part[0] * H + torch.arange(H, device=x.device)) // (cfg.n_heads // Kv)
+            k, v = model_input(k)[:, :, kv_of], model_input(v)[:, :, kv_of]
+            Kv, kn = H, None
     G = H // Kv
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, Dh)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Kv, Dh)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Kv, Dh)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["qn"], cfg.norm_eps)
-        k = rmsnorm(k, p["kn"], cfg.norm_eps)
+        q = rmsnorm(q, qn, cfg.norm_eps)
+        if kn is not None:
+            k = rmsnorm(k, kn, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -170,8 +204,8 @@ def gqa_apply(
     else:
         mask = causal_mask(S, k_all.shape[1], q_offset, x.device) if causal else None
         out = _sdpa(qg, k_all, v_all, mask)
-    out = out.reshape(B, S, H * Dh)
-    return out @ p["wo"].to(x.dtype), cache
+    out = out.reshape(B, S, H * Dh) @ fetch(p["wo"].to(x.dtype), split, None)
+    return constrain(out, src="partial" if split else None), cache
 
 
 # ---------------------------------------------------------------------- #
@@ -226,11 +260,17 @@ def mla_apply(
     if absorb is None:
         absorb = cache is not None and S == 1
 
-    cq = rmsnorm(x @ p["wdq"].to(x.dtype), p["qln"], cfg.norm_eps)
-    q = (cq @ p["wuq"].to(x.dtype)).reshape(B, S, H, dn + dr)
+    # the latents are whole on every model rank; the heads split where
+    # they divide the tensor axis
+    split = MODEL if model_part(H) else None
+    cq = rmsnorm(x @ fetch(p["wdq"].to(x.dtype)), p["qln"], cfg.norm_eps)
+    wuq = fetch(p["wuq"].to(x.dtype), None, split)
+    H = wuq.shape[-1] // (dn + dr)
+    q = (model_input(cq) if split else cq) @ wuq
+    q = q.reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
-    ckv_full = x @ p["wdkv"].to(x.dtype)  # (B, S, C + dr)
+    ckv_full = x @ fetch(p["wdkv"].to(x.dtype))  # (B, S, C + dr)
     ckv = rmsnorm(ckv_full[..., :C], p["kvln"], cfg.norm_eps)
     k_rope = rope(ckv_full[..., None, C:], positions, cfg.rope_theta)[:, :, 0]  # (B, S, dr)
 
@@ -241,9 +281,11 @@ def mla_apply(
     else:
         ckv_all, kr_all = ckv, k_rope
         mask = causal_mask(S, S, 0, x.device) if causal else None
+    if split:
+        ckv_all, kr_all = model_input(ckv_all), model_input(kr_all)
     sk = ckv_all.shape[1]
 
-    wukv = p["wukv"].to(x.dtype).reshape(C, H, dn + dv)
+    wukv = fetch(p["wukv"].to(x.dtype), None, split).reshape(C, H, dn + dv)
     wuk, wuv = wukv[..., :dn], wukv[..., dn:]  # (C, H, dn), (C, H, dv)
     scale = 1.0 / math.sqrt(dn + dr)
     if absorb:
@@ -263,7 +305,8 @@ def mla_apply(
         out = torch.einsum("bqhc,chd->bqhd", o_c, wuv)
     else:
         out = torch.einsum("bhqs,bshd->bqhd", probs, kv[..., dn:])
-    return out.reshape(B, S, H * dv) @ p["wo"].to(x.dtype), cache
+    out = out.reshape(B, S, H * dv) @ fetch(p["wo"].to(x.dtype), split, None)
+    return constrain(out, src="partial" if split else None), cache
 
 
 # ---------------------------------------------------------------------- #
@@ -291,8 +334,8 @@ def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
     ``enc_out``'s dtype: computed once a prefill and cached for decode."""
     B, Sk, _ = enc_out.shape
     Kv, Dh = cfg.n_kv_heads, cfg.head_dim
-    k = (enc_out @ p["wk"].to(enc_out.dtype)).reshape(B, Sk, Kv, Dh)
-    v = (enc_out @ p["wv"].to(enc_out.dtype)).reshape(B, Sk, Kv, Dh)
+    k = (enc_out @ fetch(p["wk"].to(enc_out.dtype))).reshape(B, Sk, Kv, Dh)
+    v = (enc_out @ fetch(p["wv"].to(enc_out.dtype))).reshape(B, Sk, Kv, Dh)
     return {"k": k, "v": v}
 
 
@@ -301,6 +344,6 @@ def cross_apply(p: dict, x: torch.Tensor, kv: dict, cfg: ModelConfig) -> torch.T
     x's dtype) -> (B, S, d)."""
     B, S, d = x.shape
     H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, Kv, H // Kv, Dh)
+    q = (x @ fetch(p["wq"].to(x.dtype))).reshape(B, S, Kv, H // Kv, Dh)
     out = _sdpa(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype), None)
-    return out.reshape(B, S, H * Dh) @ p["wo"].to(x.dtype)
+    return out.reshape(B, S, H * Dh) @ fetch(p["wo"].to(x.dtype))

@@ -3,9 +3,14 @@
 
 Params are plain dicts of tensors in the reference's layouts. Every matmul
 casts its weight to the activations' dtype, as the reference does; a server
-that stores its params in the compute dtype makes those casts no-ops. The
-reference's sharding hints (``fetch``) are no-ops without a mesh and are
-left to the sharding slice.
+that stores its params in the compute dtype makes those casts no-ops.
+
+Under ``distributed.ctx.activation_sharding`` the FFN runs split over the
+tensor axis where its width divides it (Megatron: column-parallel ``w1``/
+``w3``, row-parallel ``w2`` and an all-reduce); a SABLE matrix whose tile
+list divides it runs K2 on this rank's contiguous run of tiles (its own
+sub-pattern and plan key) and reduces the partial sums. Outside a context
+``fetch``, ``model_input`` and ``constrain`` return their argument.
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..sparse.linear import random_pattern, sparse_matmul_auto
+from ..distributed.ctx import MODEL, constrain, fetch, model_input, model_part
+from ..sparse.linear import random_pattern, sparse_matmul_auto, sub_pattern
 from .config import ModelConfig, SableConfig
 
 __all__ = [
@@ -120,6 +126,20 @@ def _act(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return F.silu(h)
 
 
+def _sable_matmul(x: torch.Tensor, tiles, pattern, part, out_model: bool):
+    """x @ W for SABLE tiles. With ``part`` (this rank's model coordinate
+    and the model size) the tile list is split over the tensor axis: this
+    rank multiplies its own run of tiles (their sub-pattern) with ``x`` (a
+    ``model_input``), and the partial sums are reduced: with ``out_model``
+    reduce-scattered into a model-split last dim where it divides (else
+    all-reduced, in ``sparse_matmul_auto``), without it all-reduced here."""
+    if part is None:
+        return sparse_matmul_auto(x, fetch(tiles.to(x.dtype)), pattern)
+    y = sparse_matmul_auto(x, fetch(tiles.to(x.dtype), MODEL), sub_pattern(pattern, *part),
+                           out_model=out_model)
+    return y if out_model else constrain(y, src="partial")
+
+
 def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Dense or SABLE block-sparse FFN (swiglu / relu^2 / gelu). The sparse
     matrices go through ``sparse_matmul_auto``: the pattern's plan picks
@@ -127,19 +147,27 @@ def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.sable is not None and p["w1"].dim() == 3:
         pats = sable_patterns(cfg)
         p_in, p_out = pats["in"], pats["out"]
-        h = sparse_matmul_auto(x, p["w1"].to(x.dtype), p_in)
+        part_in, part_out = model_part(p_in.n_tiles), model_part(p_out.n_tiles)
+        xin = model_input(x) if part_in else x
+        h = _sable_matmul(xin, p["w1"], p_in, part_in, True)
         if cfg.ffn_type == "swiglu":
-            g = sparse_matmul_auto(x, p["w3"].to(x.dtype), p_in)
-            h = F.silu(h) * g
+            h = F.silu(h) * _sable_matmul(xin, p["w3"], p_in, part_in, True)
         else:
             h = _act(cfg, h)
+        # h is model-split on its last dim where w1's partial sums were
+        # reduce-scattered; w2 takes it whole
+        split = -1 if part_in and model_part(p_in.d_out) else None
+        h = model_input(h, src=split) if part_out else constrain(h, src=split)
         # the residual stream stays row-major: K2's transposed output, added
         # to a (B, 1, d) stream at decode, gives strides that send every later
         # matmul through bmm, which reads its weight once per row
-        return sparse_matmul_auto(h, p["w2"].to(x.dtype), p_out).contiguous()
-    h = x @ p["w1"].to(x.dtype)
+        return _sable_matmul(h, p["w2"], p_out, part_out, False).contiguous()
+    m = MODEL if model_part(p["w1"].shape[-1]) else None
+    if m:
+        x = model_input(x)
+    h = x @ fetch(p["w1"].to(x.dtype), None, m)
     if cfg.ffn_type == "swiglu":
-        h = F.silu(h) * (x @ p["w3"].to(x.dtype))
+        h = F.silu(h) * (x @ fetch(p["w3"].to(x.dtype), None, m))
     else:
         h = _act(cfg, h)
-    return h @ p["w2"].to(x.dtype)
+    return constrain(h @ fetch(p["w2"].to(x.dtype), m, None), src="partial" if m else None)

@@ -16,8 +16,16 @@ Params keep the reference's layout (``w1 (E, d, f)``, ``w2 (E, f, d)``, ...).
 The dropless path reads the per-expert weights in place as the stacked
 (d, E*f) matrix that ``sdd`` multiplies (a strided view, ``w1.permute(1, 0,
 2)``), where the reference transposes ``w1`` and ``w3`` into it on every
-call. The reference's sharding hints (``fetch``, ``constrain``) are no-ops
-without a mesh and are left to the sharding slice.
+call.
+
+Under ``distributed.ctx.activation_sharding`` (batch rows split over the
+data shards, each row its own routing group) the capacity path is expert
+parallel where the experts divide the tensor axis: each model rank runs
+its E/M experts on its data shard's buckets, then the expert outputs are
+gathered back before the combine. The dropless path gathers every
+expert's weights (the reference's "no EP resharding") and runs whole on
+each model rank; the shared experts are a Megatron FFN. The load-balance
+loss takes its means over the whole batch (sums over the data shards).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..distributed.ctx import DP, MODEL, constrain, dp_size, dp_sum, fetch, model_input, model_part
 from ..kernels.bsr_ops import dsd, sdd
 from ..sparse.block_csr import topology_from_mask
 from .config import ModelConfig
@@ -105,7 +114,7 @@ def _route(p: dict, x: torch.Tensor, cfg: ModelConfig, per_lane: bool = False) -
     G, Tg = (B, S) if S > 1 or (per_lane and not mc.dropless) else (1, B * S)
     C = _capacity(Tg, cfg)
     xg = x.reshape(G, Tg, d)
-    logits = (xg @ p["router"].to(xg.dtype)).float()
+    logits = (xg @ fetch(p["router"].to(xg.dtype))).float()
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, k, dim=-1)  # sorted, as lax.top_k
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp(min=1e-9)
@@ -168,25 +177,31 @@ def _dropless_ffn(p: dict, buf: torch.Tensor, counts: torch.Tensor, tokens: int,
     f = p["w1"].shape[-1]
     topo = _dropless_topology(counts, C, tokens, cfg, f)
     a = buf.reshape(G * E * C, d)
-    h = sdd(a, p["w1"].to(buf.dtype).permute(1, 0, 2), topo)
+    h = sdd(a, fetch(p["w1"].to(buf.dtype)).permute(1, 0, 2), topo)
     if cfg.ffn_type == "swiglu":
-        g = sdd(a, p["w3"].to(buf.dtype).permute(1, 0, 2), topo)
+        g = sdd(a, fetch(p["w3"].to(buf.dtype)).permute(1, 0, 2), topo)
         h = h.with_data(F.silu(h.data) * g.data)
     else:
         h = h.with_data(_act(cfg, h.data))
-    out = dsd(h, p["w2"].to(buf.dtype).reshape(E * f, d))
+    out = dsd(h, fetch(p["w2"].to(buf.dtype)).reshape(E * f, d))
     return out.reshape(G, E, C, d)
 
 
 def _capacity_ffn(p: dict, buf: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Expert FFN over the whole (G, E, C, d) buffer: batched products."""
-    h = torch.einsum("gecd,edf->gecf", buf, p["w1"].to(buf.dtype))
+    """Expert FFN over the whole (G, E, C, d) buffer: batched products.
+    Expert parallel where the experts split over the tensor axis: this
+    rank's experts' buckets, its experts' weights, the outputs gathered."""
+    ep = MODEL if model_part(cfg.moe.num_experts) else None
+    buf = constrain(buf, DP, ep, None, None)
+    h = torch.einsum("gecd,edf->gecf", buf, fetch(p["w1"].to(buf.dtype), ep))
     if cfg.ffn_type == "swiglu":
-        g = torch.einsum("gecd,edf->gecf", buf, p["w3"].to(buf.dtype))
+        g = torch.einsum("gecd,edf->gecf", buf, fetch(p["w3"].to(buf.dtype), ep))
         h = F.silu(h) * g
     else:
         h = _act(cfg, h)
-    return torch.einsum("gecf,efd->gecd", h, p["w2"].to(buf.dtype))
+    out = torch.einsum("gecf,efd->gecd", h, fetch(p["w2"].to(buf.dtype), ep))
+    # back to the data shards before the combine
+    return constrain(out, DP, None, None, None, src=1 if ep else None)
 
 
 def _combine(out_buf: torch.Tensor, r: _Routing, dtype: torch.dtype) -> torch.Tensor:
@@ -201,12 +216,15 @@ def _combine(out_buf: torch.Tensor, r: _Routing, dtype: torch.dtype) -> torch.Te
 
 def _shared_experts(p: dict, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The shared experts, a dense FFN branch over every token: (T, d)."""
-    h = xt @ p["sw1"].to(xt.dtype)
+    m = MODEL if model_part(p["sw1"].shape[-1]) else None
+    if m:
+        xt = model_input(xt)
+    h = xt @ fetch(p["sw1"].to(xt.dtype), None, m)
     if cfg.ffn_type == "swiglu":
-        h = F.silu(h) * (xt @ p["sw3"].to(xt.dtype))
+        h = F.silu(h) * (xt @ fetch(p["sw3"].to(xt.dtype), None, m))
     else:
         h = _act(cfg, h)
-    return h @ p["sw2"].to(xt.dtype)
+    return constrain(h @ fetch(p["sw2"].to(xt.dtype), m, None), src="partial" if m else None)
 
 
 def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, per_lane: bool = False):
@@ -233,8 +251,13 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, per_lane: bool = False
     if mc.num_shared:
         y = y + _shared_experts(p, x.reshape(B * S, d), cfg)
 
-    # Switch-style load-balance aux loss
-    me = r.probs.reshape(-1, E).mean(dim=0)  # mean router prob per expert
-    ce = r.counts.sum(dim=0).float() / (r.G * r.Tg * k)
+    # Switch-style load-balance aux loss, its means over the whole batch
+    n_dp = dp_size()
+    if n_dp == 1:
+        me = r.probs.reshape(-1, E).mean(dim=0)  # mean router prob per expert
+        ce = r.counts.sum(dim=0).float() / (r.G * r.Tg * k)
+    else:  # the sums of every data shard
+        me = dp_sum(r.probs.reshape(-1, E).sum(dim=0)) / (r.G * r.Tg * n_dp)
+        ce = dp_sum(r.counts.sum(dim=0).float()) / (r.G * r.Tg * k * n_dp)
     aux = mc.aux_loss_coef * E * torch.sum(me * ce)
     return y.reshape(B, S, d), aux

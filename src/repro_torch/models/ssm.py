@@ -13,8 +13,9 @@ float32 and is cast to the activations' dtype; ``dA``, its cumulative sum,
 the decay matrix and the carried state run in that dtype (bfloat16 in
 serving). Everything here is plain PyTorch: the reference computes SSD with
 ``einsum``, ``lax.scan`` and ``lax.conv_general_dilated``, outside any
-Pallas kernel. The reference's sharding hints (``fetch``) are left to the
-sharding slice.
+Pallas kernel. Under ``distributed.ctx.activation_sharding`` the mixer
+runs whole on every model rank, its weights gathered (``fetch``); its
+tensor parallelism is still to come.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..distributed.ctx import fetch
 from .config import ModelConfig
 from .layers import dense_init, rmsnorm
 
@@ -148,6 +150,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, return_cache: bool =
     cache's conv leaf zero-padded on the left when S < d_conv - 1."""
     s, di, nh, gn, conv_ch = _dims(cfg)
     Bb, S, d = x.shape
+    p = {k: fetch(v) for k, v in p.items()}  # whole under a mesh
     z, xbc, dt_raw = _in_proj(p, x)
 
     conv_act = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))

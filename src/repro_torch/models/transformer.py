@@ -23,6 +23,10 @@ in "decode" mode, as the reference threads the mode. So every caller reads
 the new state from the cache it passed in (the scheduler's lane step and
 paged writes among them).
 
+Under ``distributed.ctx.activation_sharding`` (model sharding) each layer
+places its own collectives (see ``distributed.ctx``); the embedding is
+vocab-parallel and the logits stay split over the vocabulary.
+
 ``forward_train`` runs the groups in a third mode, "train", with no cache
 (a Mamba sub-layer writes no state). ``cfg.remat`` wraps each block as the
 reference wraps its scan body: "full" in non-reentrant
@@ -49,6 +53,7 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
+from ..distributed.ctx import DP, MODEL, constrain, current, entered, fetch, model_input, model_part
 from .attention import (
     cross_apply,
     cross_init,
@@ -272,6 +277,13 @@ def _remat(cfg: ModelConfig, fn):
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    ctx = current()
+    if ctx is not None:  # the recompute may run on autograd's device thread
+        inner = fn
+
+        def fn(*args):
+            with entered(ctx):
+                return inner(*args)
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
@@ -348,15 +360,29 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, enc_len: int = 0, dtype
 def _embed(params, cfg, tokens):
     # gather, then cast: the reference casts the whole table first; the
     # values are the same
-    return params["embed"][tokens].to(_cdtype(cfg))
+    part = model_part(cfg.vocab_size)
+    if part is None:
+        return fetch(params["embed"])[tokens].to(_cdtype(cfg))
+    # vocab-parallel: this rank's rows (cast, then gathered over fsdp), zeros
+    # for the ids outside them, summed over "model"
+    table = fetch(params["embed"].to(_cdtype(cfg)), MODEL, None)
+    ids = tokens - part[0] * table.shape[0]
+    mine = (ids >= 0) & (ids < table.shape[0])
+    x = torch.where(mine[..., None], table[ids.clamp(0, table.shape[0] - 1)], 0)
+    return constrain(x, DP, None, None, src="partial")
 
 
 def _unembed(params, cfg, x):
+    """Logits in the compute dtype; under a mesh split over the vocabulary
+    on the tensor axis where it divides (each rank its own block)."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    m = MODEL if model_part(cfg.vocab_size) else None
+    if m:
+        x = model_input(x)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = x @ fetch(params["embed"].to(x.dtype), m, None).T
     else:
-        logits = x @ params["lm_head"].to(x.dtype)
+        logits = x @ fetch(params["lm_head"].to(x.dtype), None, m)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
@@ -369,7 +395,7 @@ def encode(params, cfg: ModelConfig, src_embeds):
     Returns (B, S_src, d_model) in the compute dtype."""
     x = src_embeds.to(_cdtype(cfg))
     if "frontend_proj" in params:
-        x = x @ params["frontend_proj"].to(x.dtype)
+        x = x @ fetch(params["frontend_proj"].to(x.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, _ = _run_groups(cfg, cfg.enc_groups, params["enc_groups"], x, positions, None, None,
                           False, None, "train")
@@ -380,7 +406,11 @@ def forward_train(params, cfg: ModelConfig, batch: dict):
     """Teacher-forced forward. batch: {"tokens": (B, S)} integer tensor on
     the params' device and, for an enc-dec model, {"src_embeds": (B, S_src,
     frontend_dim)}. Returns (logits (B, S, V) in the compute dtype, aux 0-d
-    float32: the MoE layers' load-balance loss, 0 without them)."""
+    float32: the MoE layers' load-balance loss, 0 without them).
+
+    Under ``distributed.ctx.activation_sharding`` ``params`` is the step's
+    ``local_view`` and ``batch`` this data shard's rows; the logits come out
+    split over the vocabulary on the tensor axis where it divides."""
     tokens = batch["tokens"]
     enc_out = encode(params, cfg, batch["src_embeds"]) if cfg.is_encdec else None
     x = _embed(params, cfg, tokens)

@@ -27,7 +27,9 @@ outside any kernel); ``grouped`` and ``fixed_block`` differentiate through
 the ``bsr_ops`` family, ``dia_hybrid`` through its einsum and ``grouped``.
 ``shard=(i, n)`` keys a per-shard plan (``...-s{i}of{n}``); ``mesh=``
 warms every shard's key of a mesh from one measured base and dispatches a
-rank on its own shard's plan.
+rank on its own shard's plan. Under model sharding a SABLE matrix whose
+tile list is split over the tensor axis runs on ``sub_pattern``s, each
+with its own plan key; ``out_model`` reduces their partial sums.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ __all__ = [
     "sparse_matmul",
     "sparse_matmul_cuda",
     "sparse_matmul_auto",
+    "sub_pattern",
     "choose_matmul_strategy",
     "warm_matmul_plans",
 ]
@@ -621,8 +624,18 @@ def warm_matmul_plans(patterns, batch: int = 8, cache=None, mesh=None,
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def sub_pattern(pattern: BlockPattern, i: int, n: int) -> BlockPattern:
+    """The pattern of tiles [i * nt / n, (i + 1) * nt / n): part ``i`` of
+    ``n`` of the tile list, as a model-split SABLE matrix holds it (the
+    same shape, its own structure hash and plan key)."""
+    k = pattern.n_tiles // n
+    return BlockPattern(pattern.d_in, pattern.d_out, pattern.tm, pattern.tk,
+                        pattern.rows[i * k:(i + 1) * k], pattern.cols[i * k:(i + 1) * k])
+
+
 def sparse_matmul_auto(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPattern,
-                       shard=None, mesh=None, family: str = None):
+                       shard=None, mesh=None, out_model: bool = False, family: str = None):
     """Plan-dispatched sparse matmul on x's device. A pattern with no plan
     yet is measured here (eagerly, as the reference measures outside
     ``jit``); ``warm_matmul_plans`` resolves a model's patterns ahead of
@@ -630,8 +643,16 @@ def sparse_matmul_auto(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPatte
 
     ``shard=(i, n)`` dispatches on shard ``i``'s plan. With ``mesh=`` (and
     no ``shard``) this rank's shard of the mesh's shard axis picks the
-    plan; the result is the full product either way (the reference's
-    ``out_model`` layout comes with the model-sharding slice)."""
+    plan.
+
+    ``out_model=True`` puts the output's last dim on the tensor axis, as
+    the reference's constraint does. Under ``distributed.ctx``'s
+    ``activation_sharding`` the tiles are this rank's part of a tile list
+    split over "model" (``pattern`` its ``sub_pattern``), so the product is
+    a partial sum: it is reduce-scattered into this rank's block of the
+    last dim, or all-reduced whole where that dim does not divide. With an
+    explicit ``mesh=`` that has a model axis, the whole product comes back
+    as a DTensor split on its last dim over that axis. No-op otherwise."""
     if shard is None and mesh is not None:
         from ..core.sharded import resolve_shard_axis, shard_count
 
@@ -640,4 +661,22 @@ def sparse_matmul_auto(x: torch.Tensor, tiles: torch.Tensor, pattern: BlockPatte
             axis = resolve_shard_axis(mesh)
             shard = (int(mesh.get_coordinate()[mesh.mesh_dim_names.index(axis)]), n)
     strategy = choose_matmul_strategy(pattern, family=family, device=x.device, shard=shard)
-    return _MATMUL_IMPLS[strategy](x, tiles, pattern)
+    y = _MATMUL_IMPLS[strategy](x, tiles, pattern)
+    if not out_model:
+        return y
+    if mesh is None:
+        from ..distributed.ctx import MODEL, constrain
+
+        return constrain(y, *([None] * (y.dim() - 1)), MODEL, src="partial")
+    from ..core.sharded import axis_size, resolve_model_axis
+
+    maxis = resolve_model_axis(mesh)
+    if maxis is None or y.shape[-1] % axis_size(mesh, maxis):
+        return y
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    n = axis_size(mesh, maxis)
+    i = int(mesh.get_local_rank(maxis))
+    local = y.narrow(-1, i * (y.shape[-1] // n), y.shape[-1] // n)
+    placements = [Shard(y.dim() - 1) if a == maxis else Replicate() for a in mesh.mesh_dim_names]
+    return DTensor.from_local(local, mesh, placements)

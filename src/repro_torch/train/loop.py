@@ -88,7 +88,7 @@ class TrainLoop:
                 self.on_straggler(self.step, dt, self.monitor)
             self.step += 1
             if log_every and self.step % log_every == 0:
-                log_fn(f"step {self.step} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
+                log_fn(f"step {self.step} loss {loss:.6f} ({dt * 1e3:.0f} ms)")
             if self.manager and self.step % self.ckpt_every == 0:
                 self.manager.save_async(
                     self.step, {"params": params, "opt": opt_state},

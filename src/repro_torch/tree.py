@@ -7,24 +7,27 @@ from __future__ import annotations
 __all__ = ["flatten", "unflatten", "tree_leaves", "tree_map", "tree_paths", "tree_unflatten"]
 
 
-def flatten(tree, paths: list | None = None):
+def flatten(tree, paths: list | None = None, is_leaf=None):
     """(leaves, spec) of ``tree``; ``unflatten(spec, leaves)`` rebuilds it.
     With ``paths`` given, each leaf's keys and indices joined with "/"
     (``groups/0/sub0/ffn/w1``, as the reference's checkpoints name them)
-    are appended to it in the same order."""
+    are appended to it in the same order. ``is_leaf(node)`` True stops the
+    walk at a node (a ``PartitionSpec``, itself a tuple)."""
     leaves = []
-    return leaves, _flatten_into(tree, leaves, paths, "")
+    return leaves, _flatten_into(tree, leaves, paths, "", is_leaf)
 
 
-def _flatten_into(t, leaves: list, paths, prefix: str):
+def _flatten_into(t, leaves: list, paths, prefix: str, is_leaf=None):
     # a module-level recursion: a nested recursive function would form a
     # reference cycle holding ``leaves`` (a step's 0.6 GB batch view at full
     # width) until the cyclic garbage collector runs
-    if isinstance(t, dict):
-        return {k: _flatten_into(t[k], leaves, paths, f"{prefix}{k}/") for k in sorted(t)}
-    if isinstance(t, (list, tuple)):
-        return type(t)(_flatten_into(v, leaves, paths, f"{prefix}{i}/")
-                       for i, v in enumerate(t))
+    if is_leaf is None or not is_leaf(t):
+        if isinstance(t, dict):
+            return {k: _flatten_into(t[k], leaves, paths, f"{prefix}{k}/", is_leaf)
+                    for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(_flatten_into(v, leaves, paths, f"{prefix}{i}/", is_leaf)
+                           for i, v in enumerate(t))
     leaves.append(t)
     if paths is not None:
         paths.append(prefix[:-1])

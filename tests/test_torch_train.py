@@ -491,15 +491,18 @@ def test_checkpoint_atomicity_async_save_and_gc(tmp_path):
 
 
 def test_left_out_parts_raise(tmp_path):
-    """Sharding waits for its slice: mesh=, shardings= and --devices."""
+    """The sharding entry points refuse what they cannot shard on: mesh=
+    takes a named DeviceMesh, shardings= NamedSharding leaves, and --devices
+    on the card as many cards as are visible (none here)."""
     from repro_torch.launch import train as tlaunch
 
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstep.make_train_step(tl_f32(), tadamw.AdamWConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        tckpt.restore_checkpoint(str(tmp_path), {}, shardings=object())
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        tlaunch.main(["--arch", "llama3-8b", "--reduced", "--devices", "2", "--device", CPU])
+    tckpt.save_checkpoint(str(tmp_path), 1, {"w": torch.zeros(2)})
+    with pytest.raises(TypeError, match="NamedSharding"):
+        tckpt.restore_checkpoint(str(tmp_path), {"w": torch.zeros(2)}, shardings=object())
+    with pytest.raises(RuntimeError, match="visible cards"):
+        tlaunch.main(["--arch", "llama3-8b", "--reduced", "--devices", "2"])
 
 
 # ---------------------------------------------------------------------- #
