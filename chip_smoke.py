@@ -311,11 +311,38 @@ Phases, each printing its lines:
             --devices 1, then --resume. A one-rank group exchanges nothing:
             the exchange between ranks is checked on the CPU
             (tests/test_torch_model_sharding.py).
+17. serve sharded  drives sharded serving and the dry-run: its
+            dry-run subprocesses start first, then in a one-rank NCCL
+            group (file:// store under build/), torn down after: (a)
+            prefill and decode under activation_sharding on
+            make_local_mesh(("pod", "data", "model"), (1, 1, 1)) with
+            params and caches as DTensors (make_shardings of param_specs /
+            cache_specs, on the params' own storage), against the same
+            calls unsharded, both under deterministic algorithms: the
+            logits (whole_logits) and every cache leaf bit for bit, K2/K3
+            launched as often both ways, for llama3-8b-sable cut to 8
+            layers (FFN pinned to cuda; 8 x 512 + 16 steps), DeepSeek-V2
+            layer 0 + 4 MoE layers dropless (4 x 512 + 8; K3 and K2 must
+            launch), mamba2-1.3b whole and seamless whole; (b) the dry-run
+            CLI (python -m repro_torch.launch.dryrun --device cuda) on
+            llama3-8b train_4k, DeepSeek-V2 decode_32k, mamba2 long_500k
+            and seamless prefill_32k on the (16, 16) mesh and llama3-8b
+            train_4k on (2, 16, 16), each in its own process on a fake
+            process group: exit 0, each status ok, per-rank GB, FLOPs and
+            the dominant roofline term printed; (c) dense llama3-8b's
+            prefill of 8 x 512 built by the dry-run's build_cell on a (1, 1)
+            mesh, traced on fake tensors and run on the card: the traced
+            FLOPs must equal FlopCounterMode's over the run; the traced
+            peak beside max_memory_allocated, the roofline's largest term
+            beside the measured ms.
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
 fma_bound_ms beside it counts float32 on the FMA pipes (67 TFLOP/s).
 Tolerance: max|out - ref| / max|ref| <= 1e-5 in float32, 2e-2 in bfloat16.
+A library yardstick is timed --reps times, or as often as LIB_BUDGET_MS of
+calls allows where one call is slow (cuSPARSE at jamba's widths takes
+~0.5-0.9 s), but at least LIB_MIN_REPS times.
 Any failure raises. The last two lines are the `kernels` JSON object (K1
 and K2 at u in float32 as the rows' own keys, and their other rows as
 u_bf16_*, nu_f32_* and nu_bf16_* keys; K3 at the MoE prefill tables in
@@ -340,7 +367,9 @@ in 15a: the sharded call, the unsharded call, the shard tables' kernels,
 plain versions, library calls and bounds summed, launches, imbalance;
 shard_contiguous_*, shard_mesh_*, shard_tune_* and shard_warm_* for the
 rest of phase 15; shard_train_* and shard_ckpt_* on K2 for 16a and 16c,
-shard_moe_{dropless,capacity}_launches on K2 and K3 for 16b) and
+shard_moe_{dropless,capacity}_launches on K2 and K3 for 16b;
+shard_serve_{sable,ds}_* on K2 and shard_serve_ds_launches on K3 for 17a,
+dryrun_prefill_* and dryrun_<cell>_peak_gb on K2 for 17c and 17b) and
 {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
@@ -348,6 +377,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -366,6 +396,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"torch.float32": 494.7e12 / 3, "torch.bfloat16": 989e12}
 FMA_OPS_PER_S = 67e12  # float32 on the FMA pipes: the bound before 3xTF32
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+LIB_BUDGET_MS, LIB_MIN_REPS = 4000.0, 5  # library yardsticks: timed calls' budget, floor
 
 KERNELS = {
     "bsr_spmv": ("src/repro_torch/kernels/csrc/bsr_spmv.cu", "src/repro/kernels/bsr_spmv.py:39"),
@@ -403,14 +434,19 @@ def library_time(label, make, want, dtype, reps, select=lambda y: y, before=None
 
     try:
         call = make()
+        t0 = time.perf_counter()
         got = select(call())
         torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
     except Exception as e:  # any refusal is the finding: record it
         txt = f"n/a ({type(e).__name__}: {(str(e).splitlines() or [''])[0][:200]})"
         print(f"  {label}: {txt}")
         return None, txt
     err, rel = rel_err(got, want)
     del got
+    # a call of a second or so (cuSPARSE at jamba's widths) is timed fewer
+    # times: LIB_BUDGET_MS of timed calls, never fewer than LIB_MIN_REPS
+    reps = max(LIB_MIN_REPS, min(reps, int(LIB_BUDGET_MS / max(first_ms, 1e-3))))
     ms = median_ms(call, reps, before)
     tol = TOL[str(dtype)]
     note = "" if rel <= tol else f", less precise than the kernels' tolerance {tol:g}"
@@ -4468,6 +4504,299 @@ def phase_model_sharding(args, torch, kops, dev):
     return keys
 
 
+# ---------------------------------------------------------------------- #
+# phase 17: sharded serving and the dry-run
+# ---------------------------------------------------------------------- #
+SS_SABLE = (8, 512, 16)  # 17a: llama3-8b-sable (TRAIN_LAYERS layers): B, prompt, decode steps
+SS_DS = (4, 512, 8)  # DeepSeek-V2, dense layer 0 and DS_MOE_LAYERS MoE layers, dropless
+SS_M2 = (8, 512, 16)  # mamba2-1.3b whole
+SS_SM = (8, 512, 32, 16)  # seamless whole: B, source frames, prompt, decode steps
+# 17b: the dry-run CLI's cells: (arch, shape, --multi-pod)
+DRYRUN_CELLS = (("llama3-8b", "train_4k", "single"), ("deepseek-v2-236b", "decode_32k", "single"),
+                ("mamba2-1.3b", "long_500k", "single"),
+                ("seamless-m4t-large-v2", "prefill_32k", "single"),
+                ("llama3-8b", "train_4k", "multi"))
+DR_B, DR_S = 8, 512  # 17c: dense llama3-8b's prefill, traced and run
+
+
+def one_rank_dtensors(torch, tree, shardings):
+    """``tree``'s leaves as DTensors laid out by ``shardings`` on a one-rank
+    mesh, each on its own storage (``distribute`` copies a split leaf)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    out = []
+    for leaf, sh in zip(tree_leaves(tree), tree_leaves(shardings)):
+        assert sh.mesh.size() == 1
+        out.append(DTensor.from_local(leaf, sh.mesh, sh.placements, run_check=False,
+                                      shape=leaf.shape, stride=leaf.stride()))
+    return tree_unflatten(tree, out)
+
+
+def ss_case(torch, kops, m, dev, mesh, pc, label, cfg, params, B, P, G, gen, src_len=0):
+    """17a: one model's prefill of B x P tokens (after encode, for an
+    enc-dec model) and G decode steps of random tokens, unsharded, then on
+    ``mesh`` with params and cache as DTensors from make_shardings(
+    param_specs / cache_specs) under activation_sharding, each under
+    deterministic algorithms. The logits (gathered) and every cache leaf
+    must be bit for bit the same both ways, and K2/K3 launch as often.
+    Returns the case's keys."""
+    from repro_torch.distributed.ctx import activation_sharding
+    from repro_torch.distributed.sharding import cache_specs, make_shardings, param_specs
+    from repro_torch.tree import tree_leaves
+
+    ttr = m["ttr"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    steps = torch.randint(0, cfg.vocab_size, (G, B, 1), generator=gen, device=dev)
+    src = (torch.randn(B, src_len, cfg.frontend_dim, generator=gen, device=dev)
+           if cfg.is_encdec else None)
+
+    def run(p, cache, sharded):
+        kops.reset_launches()
+        logits, times = [], []
+        ctx = activation_sharding(mesh, pc) if sharded else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = ttr.encode(p, cfg, src) if cfg.is_encdec else None
+            lg, back = ttr.prefill(p, cfg, tokens, cache, enc_out=enc)
+            logits.append(ttr.whole_logits(lg, cfg, B))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            for i in range(G):
+                t0 = time.perf_counter()
+                lg, back = ttr.decode_step(p, cfg, steps[i], cache, P + i)
+                logits.append(ttr.whole_logits(lg, cfg, B))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        assert back is cache
+        return logits, dict(kops.launches), times
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cache_u = ttr.init_cache(cfg, B, P + G, enc_len=src_len, device=dev)
+        lu, nu_, tu = run(params, cache_u, False)
+        c = ttr.init_cache(cfg, B, P + G, enc_len=src_len, device=dev)
+        model = int(mesh.size(tuple(mesh.mesh_dim_names).index("model")))
+        cache_s = one_rank_dtensors(torch, c, make_shardings(
+            mesh, pc, cache_specs(cfg, c, pc, model), c))
+        dparams = one_rank_dtensors(torch, params, make_shardings(
+            mesh, pc, param_specs(cfg, params), params))
+        ls, ns, ts = run(dparams, cache_s, True)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    same_logits = all(torch.equal(a, b) for a, b in zip(ls, lu))
+    same_cache = all(torch.equal(a.full_tensor(), b)
+                     for a, b in zip(tree_leaves(cache_s), tree_leaves(cache_u)))
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in ls)
+    k = ("bsr_spmm", "bsr_sdd")
+    same_launches = all(ns[n] == nu_[n] for n in k)
+    dec = lambda t: statistics.median(t[1:]) * 1e3  # noqa: E731
+    ok = same_logits and same_cache and finite and same_launches
+    print(f"  {label}: prefill {B} x {P} + {G} decode steps; logits {len(ls)} x "
+          f"{tuple(ls[0].shape)} and {len(tree_leaves(cache_s))} cache leaves, sharded vs "
+          f"unsharded bit for bit: {same_logits} / {same_cache}; K2/K3 launches "
+          f"{ns['bsr_spmm']}/{ns['bsr_sdd']} vs {nu_['bsr_spmm']}/{nu_['bsr_sdd']}; prefill "
+          f"{ts[0] * 1e3:.2f} vs {tu[0] * 1e3:.2f} ms, decode a step (median, deterministic "
+          f"algorithms) {dec(ts):.2f} vs {dec(tu):.2f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 17a: {label} sharded serving differs from unsharded")
+    del cache_u, cache_s, dparams, lu, ls
+    return dict(k2=ns["bsr_spmm"], k3=ns["bsr_sdd"], prefill_ms=ts[0] * 1e3,
+                plain_prefill_ms=tu[0] * 1e3, decode_ms=dec(ts), plain_decode_ms=dec(tu))
+
+
+def ss_serve(args, torch, kops, m, dev, mesh, pc):
+    """17a: the four models, one at a time. Returns {kernel: keys}."""
+    ttr = m["ttr"]
+    keys = {"bsr_spmm": {}, "bsr_sdd": {}}
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    cases = (("sable", f"llama3-8b-sable ({TRAIN_LAYERS} layers, FFN pinned to cuda)",
+              train_model(m, TRAIN_LAYERS, "bfloat16"), SS_SABLE),
+             ("ds", f"{DS} (layer 0 dense, {DS_MOE_LAYERS} MoE, dropless)",
+              moe_model(DS, DS_MOE_LAYERS, "bfloat16"), SS_DS),
+             ("m2", f"{M2} whole", mamba2_model("bfloat16"), SS_M2),
+             ("sm", f"{SM} whole", sm_model(m), SS_SM))
+    for tag, label, cfg, shape in cases:
+        t0 = time.perf_counter()
+        params = ttr.init_params(cfg, gen, device=dev)
+        if tag == "sable":
+            pin_strategy(m, list(m["tlayers"].sable_patterns(cfg).values()), "cuda", dev)
+        B, rest = shape[0], shape[1:]
+        src_len = rest[0] if tag == "sm" else 0
+        P, G = rest[-2:]
+        r = ss_case(torch, kops, m, dev, mesh, pc, f"{label} [{time.perf_counter() - t0:.1f} s "
+                    "to draw]", cfg, params, B, P, G, gen, src_len)
+        if tag in ("sable", "ds"):
+            keys["bsr_spmm"].update({f"shard_serve_{tag}_{k}": v for k, v in r.items()
+                                     if k != "k3"})
+            keys["bsr_spmm"][f"shard_serve_{tag}_launches"] = keys["bsr_spmm"].pop(
+                f"shard_serve_{tag}_k2")
+        if tag == "ds":
+            keys["bsr_sdd"]["shard_serve_ds_launches"] = r["k3"]
+        if (tag in ("sable", "ds")) and r["k2"] == 0:
+            raise AssertionError(f"phase 17a: {label} never launched K2")
+        if tag == "ds" and r["k3"] == 0:
+            raise AssertionError("phase 17a: DeepSeek-V2 never launched K3")
+        del params
+        torch.cuda.empty_cache()
+    return keys
+
+
+def dryrun_start(tmp):
+    """17b: the dry-run CLI's cells in subprocesses (CPU only: fake tensors
+    on the trace device cuda), started together."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for i, (arch, shape, pods) in enumerate(DRYRUN_CELLS):
+        out = Path(tmp) / f"cell{i}"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--multi-pod", pods, "--device", "cuda", "--out", str(out)]
+        procs.append((cmd, out, time.perf_counter(), subprocess.Popen(
+            cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    return procs
+
+
+def dryrun_finish(procs) -> dict:
+    """17b: each cell's exit code, status, per-rank GB, FLOPs and dominant
+    roofline term (a model from data-sheet peaks). Returns keys."""
+    keys = {}
+    for cmd, out, t0, p in procs:
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            raise AssertionError(f"phase 17b: {' '.join(cmd[2:])} did not finish")
+        reps = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+        ok = p.returncode == 0 and reps and all(r["status"] == "ok" for r in reps)
+        for r in reps:
+            mem, roof = r.get("memory", {}), r.get("roofline", {})
+            print(f"  17b {r['arch']} x {r['shape']} x {r['mesh']} (--device cuda): rc "
+                  f"{p.returncode}, {r['status']}; per rank args "
+                  f"{mem.get('argument_size_in_bytes', 0) / 1e9:.3f} GB, peak "
+                  f"{mem.get('peak_size_in_bytes', 0) / 1e9:.3f} GB, "
+                  f"{r.get('hlo_flops_per_device', 0):.6g} FLOPs, roofline compute / memory / "
+                  f"collective {roof.get('t_compute_s', 0) * 1e3:.3f} / "
+                  f"{roof.get('t_memory_s', 0) * 1e3:.3f} / "
+                  f"{roof.get('t_collective_s', 0) * 1e3:.3f} ms -> {roof.get('dominant')} "
+                  f"(trace {r.get('trace_time_s')} s; the process "
+                  f"{time.perf_counter() - t0:.1f} s)")
+            keys[f"dryrun_{r['arch']}_{r['shape']}_{r['mesh']}_peak_gb".replace("-", "_")
+                 .replace(".", "_")] = mem.get("peak_size_in_bytes", 0) / 1e9
+        if not ok:
+            print(stdout[-2000:], stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"phase 17b: {' '.join(cmd[2:])} failed")
+    return keys
+
+
+def dryrun_held(args, torch, dev, mesh, pc):
+    """17c: dense llama3-8b's prefill of DR_B x DR_S built by the dry-run's
+    build_cell on a one-rank (1, 1) mesh, once traced on fake tensors and
+    once run on the card: the traced FLOPs must equal FlopCounterMode's over
+    the run; the traced peak beside torch.cuda.max_memory_allocated, the
+    roofline's largest term beside the measured ms. Returns keys."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun, trace_stats
+    from repro_torch.launch.mesh import HW
+
+    cfg = get_config("llama3-8b")
+    shape = Shape("prefill_8x512", DR_S, DR_B, "prefill")
+    with dryrun._traced(), torch.no_grad():
+        fn, fargs = dryrun.build_cell(cfg, shape, mesh, pc, dev)
+        stats = trace_stats.trace(fn, fargs, mesh, HW["node_size"])
+        del fn, fargs
+    stats.pop("result")
+    rep = dryrun.analyze(stats, cfg, shape, mesh)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with torch.no_grad():
+        fn, fargs = dryrun.build_cell(cfg, shape, mesh, pc, dev)
+        fn()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with trace_stats.flop_counter() as fc:
+            fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        ms = median_ms(fn, 5)
+    del fn, fargs
+    torch.cuda.empty_cache()
+    real = float(fc.get_total_flops())
+    roof = rep["roofline"]
+    top = max(("compute", "memory", "collective"), key=lambda k: roof[f"t_{k}_s"])
+    ok = real == stats["flops"] and real > 0
+    print(f"  17c: llama3-8b prefill {DR_B} x {DR_S} on a (1, 1) mesh (float32 params, "
+          f"bfloat16 compute): FLOPs traced {stats['flops']:.6g} vs counted over the run "
+          f"{real:.6g} ({'equal' if ok else 'DIFFER'}); peak live bytes traced "
+          f"{stats['memory']['peak_size_in_bytes'] / 1e9:.3f} GB (arguments "
+          f"{stats['memory']['argument_size_in_bytes'] / 1e9:.3f}) vs "
+          f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB over the {before / 1e9:.3f} GB "
+          f"held before the cell; roofline (data-sheet peaks) "
+          f"compute / memory / collective {roof['t_compute_s'] * 1e3:.3f} / "
+          f"{roof['t_memory_s'] * 1e3:.3f} / {roof['t_collective_s'] * 1e3:.3f} ms, largest "
+          f"{top}, vs measured {ms:.3f} ms (median of 5, CUDA events)")
+    if not ok:
+        raise AssertionError("phase 17c: the traced FLOPs differ from the run's")
+    return dict(dryrun_prefill_flops=real, dryrun_prefill_traced_peak_gb=stats["memory"][
+        "peak_size_in_bytes"] / 1e9, dryrun_prefill_peak_gb=peak / 1e9, dryrun_prefill_ms=ms,
+        dryrun_prefill_roofline_ms=roof[f"t_{top}_s"] * 1e3)
+
+
+def phase_sharded_serve(args, torch, kops, dev):
+    """Phase 17: sharded serving in a one-rank group (NCCL on the card, a
+    file store under build/): 17a four models' prefill and decode with
+    DTensor params and caches against unsharded, bit for bit; 17b the
+    dry-run CLI in subprocesses (started first, they run on the host's
+    cores meanwhile); 17c the dry-run's build_cell traced and run. Returns
+    {kernel: keys}."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import ParallelConfig
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_start = time.perf_counter()
+    m = serve_modules()
+    pc = ParallelConfig()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    os.makedirs(ROOT / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="dryrun-") as tmp:
+        print(f"phase 17b: the dry-run CLI, {len(DRYRUN_CELLS)} cells in subprocesses, started "
+              "now (fake process groups of 256 and 512 ranks, fake tensors on the trace "
+              "device cuda; nothing on the card)")
+        procs = dryrun_start(tmp)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="pg-") as pg:
+            if dev.type == "cuda":
+                torch.cuda.set_device(torch.cuda.current_device())
+            dist.init_process_group(backend, init_method=f"file://{pg}/store", rank=0,
+                                    world_size=1)
+            try:
+                mesh = make_local_mesh(("pod", "data", "model"), (1, 1, 1))
+                print("phase 17a: sharded prefill and decode in a one-rank group on "
+                      "make_local_mesh(('pod', 'data', 'model'), (1, 1, 1)), params and "
+                      "caches DTensors (make_shardings of param_specs / cache_specs), "
+                      "bfloat16 compute, deterministic algorithms both ways")
+                with temp_plans(m):
+                    keys = ss_serve(args, torch, kops, m, dev, mesh, pc)
+                print(f"phase 17c: the dry-run's cell held to a run on the card")
+                held = dryrun_held(args, torch, dev, make_local_mesh(("data", "model"), (1, 1)),
+                                   pc)
+            finally:
+                dist.destroy_process_group()
+        keys["bsr_spmm"].update(held)
+        keys["bsr_spmm"].update(dryrun_finish(procs))
+    print(f"phase 17: {time.perf_counter() - t_start:.1f} s")
+    return keys
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4625,6 +4954,9 @@ def main() -> int:
 
     # -- phase 16 ----------------------------------------------------------
     model_shard_keys = phase_model_sharding(args, torch, kops, dev)
+
+    # -- phase 17 ----------------------------------------------------------
+    serve_shard_keys = phase_sharded_serve(args, torch, kops, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -4666,6 +4998,7 @@ def main() -> int:
         extra.update(train_keys.get(kname, {}))  # phase 13: the backward's tables, training
         extra.update(shard_keys.get(kname, {}))  # phase 15: sharded staging
         extra.update(model_shard_keys.get(kname, {}))  # phase 16: model sharding
+        extra.update(serve_shard_keys.get(kname, {}))  # phase 17: sharded serving, dry-run
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

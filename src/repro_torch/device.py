@@ -2,7 +2,8 @@
 
 Every entry point takes ``device=None``, which means the CUDA card: the
 port's kernels are CUDA kernels, and the CPU runs only their plain PyTorch
-versions, when a caller (a test) asks for ``device="cpu"`` by name.
+versions, when a caller (a test) asks for ``device="cpu"`` by name. The
+``"meta"`` device holds shapes alone (``launch/specs.py``).
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev
-    if dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda', 'cpu' or 'meta'")
     return dev
 
 

@@ -33,12 +33,31 @@ over "model" (local heads, local experts, a local FFN slice, between
 ``model_input`` and ``constrain(..., src="partial")``) or whole on every
 model rank.
 
+Serving runs under the same context. A cache is a tree of DTensors laid
+out by ``cache_specs``; the entry points hand the layers its
+``local_view``, whose split leaves (``ShardedLeaf``) say which dims are
+split over which axes: ``local_of`` is the block a layer writes in place,
+``model_offset`` the first index of its block on a dim split over
+"model", ``model_whole`` the block gathered over "model" and
+``model_block`` a whole value cut to it (``model_gather`` gathers an
+activation split over "model"). ``rows`` takes this data shard's rows of a
+serving batch where they split over the dp axes (``rows_whole`` gathers
+them back); a batch whose rows do not split (``long_500k``'s one
+sequence) runs whole on every dp rank, as its cache is whole there (the
+train step refuses such a batch).
+``combine_partial_softmax`` joins attention taken over a context-parallel
+(sequence-split) cache: the row max all-reduced over "model", then the
+rescaled sums of ``exp`` and of ``exp @ V``; it is for serving and has no
+backward.
+
 Collectives over a mesh dim of size 1 are skipped: on a one-rank mesh the
 model runs the same operations as without one. Every collective issued
 here (and the step's and AdamW's all-reduces, through ``all_reduce_``)
 adds the bytes this rank sends to ``moved_bytes()``, by kind, as a ring
 moves them: an all-gather or reduce-scatter of N bytes over n ranks sends
 N (n - 1) / n, an all-reduce twice that, the one-chunk exchange N.
+``moved_bytes(by_axes=True)`` keys the same bytes by (kind, the mesh dims
+the group spans), for a model of the links they cross.
 
 The reference's XLA-only pieces have no counterpart: its trace-cache
 invalidation is gone and ``anchor_params`` returns its argument (nothing
@@ -62,18 +81,29 @@ __all__ = [
     "activation_sharding",
     "all_reduce_",
     "anchor_params",
+    "combine_partial_softmax",
     "constrain",
     "current",
     "dp_size",
     "entered",
     "dp_sum",
     "fetch",
+    "local_of",
     "local_view",
     "mesh_axes",
+    "model_block",
+    "model_gather",
     "model_input",
+    "model_offset",
     "model_part",
+    "model_whole",
     "moved_bytes",
+    "moved_calls",
     "reset_moved_bytes",
+    "rows",
+    "rows_whole",
+    "split_over_model",
+    "wire_factor",
 ]
 
 DP = "__DP__"
@@ -163,26 +193,52 @@ def anchor_params(tree):
 # ---------------------------------------------------------------------- #
 # collectives along one tensor dim, over one mesh dim
 # ---------------------------------------------------------------------- #
-_MOVED = dict.fromkeys(("all_gather", "reduce_scatter", "all_reduce", "exchange"), 0.0)
+_KINDS = ("all_gather", "reduce_scatter", "all_reduce", "exchange")
+_MOVED: dict = {}  # (kind, mesh dims of the group) -> bytes sent
+_CALLS: dict = {}  # (kind, mesh dims of the group) -> collectives issued
 
 
-def moved_bytes() -> dict:
-    """Bytes this rank sent since ``reset_moved_bytes``, by collective."""
-    return dict(_MOVED)
+def wire_factor(kind: str, n: int) -> float:
+    """The share of a collective's tensor each of ``n`` ranks sends on a
+    ring: all-reduce 2 (n - 1) / n, all-gather and reduce-scatter (n - 1) /
+    n, an exchange (a permutation) 1; nothing on one rank."""
+    if kind == "exchange":
+        return 1.0
+    if n <= 1:
+        return 0.0
+    return (2.0 if kind == "all_reduce" else 1.0) * (n - 1) / n
+
+
+def moved_bytes(by_axes: bool = False) -> dict:
+    """Bytes this rank sent since ``reset_moved_bytes``: by collective, or
+    with ``by_axes`` by (collective, the names of the mesh dims its group
+    spans)."""
+    if by_axes:
+        return dict(_MOVED)
+    out = dict.fromkeys(_KINDS, 0.0)
+    for (kind, _), b in _MOVED.items():
+        out[kind] += b
+    return out
+
+
+def moved_calls() -> dict:
+    """Collectives issued since ``reset_moved_bytes``, by (collective, mesh
+    dims), as ``moved_bytes(by_axes=True)`` keys them."""
+    return dict(_CALLS)
 
 
 def reset_moved_bytes() -> None:
-    for k in _MOVED:
-        _MOVED[k] = 0.0
+    _MOVED.clear()
+    _CALLS.clear()
 
 
-def _moved(kind: str, t: torch.Tensor, n: int = 2) -> None:
+def _moved(kind: str, t: torch.Tensor, n: int = 2, axes: tuple = ()) -> None:
     """Count ``t`` (the whole gathered or reduced tensor; the chunk sent in
-    an exchange) as a ring over ``n`` ranks sends it."""
-    nbytes = t.numel() * t.element_size()
-    if kind != "exchange":
-        nbytes *= (2 if kind == "all_reduce" else 1) * (n - 1) / n
-    _MOVED[kind] += nbytes
+    an exchange) as a ring over ``n`` ranks sends it, under the mesh dims
+    ``axes`` its group spans."""
+    key = (kind, tuple(axes))
+    _MOVED[key] = _MOVED.get(key, 0.0) + t.numel() * t.element_size() * wire_factor(kind, n)
+    _CALLS[key] = _CALLS.get(key, 0) + 1
 
 
 def _all_gather(x: torch.Tensor, dim: int, ax: _Axis) -> torch.Tensor:
@@ -191,7 +247,7 @@ def _all_gather(x: torch.Tensor, dim: int, ax: _Axis) -> torch.Tensor:
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((ax.size * xt.shape[0],) + tuple(xt.shape[1:]))
     dist.all_gather_into_tensor(out, xt, group=ax.group)
-    _moved("all_gather", out, ax.size)
+    _moved("all_gather", out, ax.size, (ax.name,))
     return out.movedim(0, dim)
 
 
@@ -201,7 +257,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, ax: _Axis, dtype=None) -> torch.T
     xt = x.movedim(dim, 0).to(dtype or x.dtype).contiguous()
     out = xt.new_empty((xt.shape[0] // ax.size,) + tuple(xt.shape[1:]))
     dist.reduce_scatter_tensor(out, xt, group=ax.group)
-    _moved("reduce_scatter", xt, ax.size)
+    _moved("reduce_scatter", xt, ax.size, (ax.name,))
     return out.to(x.dtype).movedim(0, dim)
 
 
@@ -213,7 +269,7 @@ def all_reduce_(x: torch.Tensor, axes, op=None) -> torch.Tensor:
     for ax in axes:
         if ax.size > 1:
             dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=ax.group)
-            _moved("all_reduce", x, ax.size)
+            _moved("all_reduce", x, ax.size, (ax.name,))
     return x
 
 
@@ -303,16 +359,16 @@ class _Permute(torch.autograd.Function):
     ``src`` (a permutation of the ranks); the backward sends back."""
 
     @staticmethod
-    def forward(ctx, x, dst, src):
-        ctx.dst, ctx.src = dst, src
-        return _exchange(x, dst, src)
+    def forward(ctx, x, dst, src, axes):
+        ctx.dst, ctx.src, ctx.axes = dst, src, axes
+        return _exchange(x, dst, src, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.src, ctx.dst), None, None
+        return _exchange(g, ctx.src, ctx.dst, ctx.axes), None, None, None
 
 
-def _exchange(x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+def _exchange(x: torch.Tensor, dst: int, src: int, axes: tuple) -> torch.Tensor:
     import torch.distributed as dist
 
     x = x.contiguous()
@@ -320,7 +376,7 @@ def _exchange(x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
     ops = [dist.P2POp(dist.isend, x, dst), dist.P2POp(dist.irecv, out, src)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
-    _moved("exchange", x)
+    _moved("exchange", x, axes=axes)
     return out
 
 
@@ -424,7 +480,7 @@ def _dim_to_layout(ctx: _Ctx, x, d: int, axes: tuple, want_model: bool):
     # in the model-major order, then gather over fsdp
     dst, src = _joint_exchange(ctx, live, m_name, f_names)
     if dst is not None:
-        x = _Permute.apply(x, dst, src)
+        x = _Permute.apply(x, dst, src, live)
     return gather(x, f_names)
 
 
@@ -555,3 +611,119 @@ def dp_sum(x: torch.Tensor) -> torch.Tensor:
     if ctx is None or ctx.dp_size() == 1:
         return x
     return _Sum.apply(x, ctx.dp)
+
+
+# ---------------------------------------------------------------------- #
+# serving: batch rows, cache blocks, the context-parallel softmax
+# ---------------------------------------------------------------------- #
+def _rows_split(n: int) -> bool:
+    """Whether a serving batch of ``n`` rows splits over the data shards
+    (as ``make_shardings`` splits its cache's batch dim)."""
+    ctx = current()
+    return ctx is not None and ctx.dp_size() > 1 and n % ctx.dp_size() == 0
+
+
+def rows(x):
+    """This data shard's rows of ``x`` (the whole batch, the same on every
+    rank) where they split over the dp axes; ``x`` itself otherwise (None,
+    too): such a batch runs whole on every dp rank."""
+    if x is None or not _rows_split(x.shape[0]):
+        return x
+    ctx = current()
+    k = x.shape[0] // ctx.dp_size()
+    i = ctx.dp_index()
+    return x[i * k:(i + 1) * k]
+
+
+def rows_whole(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The whole batch of ``n`` rows from this data shard's ``x`` where
+    ``rows`` split it (gathered over the dp axes, a plain all-gather:
+    serving, no backward); ``x`` itself otherwise."""
+    if not _rows_split(n):
+        return x
+    for ax in reversed(current().dp):  # minor first: the rows' block order
+        if ax.size > 1:
+            x = _all_gather(x, 0, ax)
+    return x
+
+
+def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``, split along ``dim`` over "model", gathered whole (a plain
+    all-gather: serving, no backward); ``x`` itself where "model" has one
+    rank or no context is active."""
+    ctx = current()
+    ax = ctx.model_split() if ctx is not None else None
+    if ax is None:
+        return x
+    return _all_gather(x.contiguous(), dim % x.dim(), ax)
+
+
+def split_over_model(leaf, d: int) -> bool:
+    """Whether dim ``d`` of ``leaf`` (a ``ShardedLeaf``) is split over a
+    tensor axis of more than one rank."""
+    return _model_dim(leaf, d) is not None
+
+
+def local_of(leaf) -> torch.Tensor:
+    """The local block of a ``ShardedLeaf``; a tensor itself."""
+    return leaf.local if isinstance(leaf, ShardedLeaf) else leaf
+
+
+def _model_dim(leaf, d: int) -> Optional[_Axis]:
+    """The tensor axis where dim ``d`` of ``leaf`` is split over it and it
+    has more than one rank."""
+    ctx = current()
+    ax = ctx.model_split() if ctx is not None else None
+    if ax is None or not isinstance(leaf, ShardedLeaf) or ax.name not in leaf.spec[d]:
+        return None
+    return ax
+
+
+def model_offset(leaf, d: int) -> int:
+    """The first index, in the whole dim ``d``, of this rank's block of
+    ``leaf`` (0 where the dim is not split over "model")."""
+    ax = _model_dim(leaf, d)
+    return 0 if ax is None else ax.rank * local_of(leaf).shape[d]
+
+
+def model_whole(leaf) -> torch.Tensor:
+    """``leaf``'s block gathered over "model" on each dim split over it
+    (a plain all-gather: serving, no backward); its rows stay local."""
+    out = local_of(leaf)
+    for d in range(out.dim()):
+        ax = _model_dim(leaf, d)
+        if ax is not None:
+            out = _all_gather(out, d, ax)
+    return out
+
+
+def model_block(value: torch.Tensor, leaf) -> torch.Tensor:
+    """``value``, whole over "model" on the dims of ``leaf`` split over it,
+    cut to this rank's block there (a dim already the block's size is
+    left as it is)."""
+    for d in range(value.dim()):
+        ax = _model_dim(leaf, d)
+        if ax is not None and value.shape[d] == leaf.shape[d]:
+            value = _narrow(value, d, ax)
+    return value
+
+
+def combine_partial_softmax(m: torch.Tensor, l: torch.Tensor,  # noqa: E741
+                            acc: torch.Tensor):
+    """Join softmax-weighted sums taken over disjoint key blocks, one a
+    model rank (a context-parallel cache): ``m`` each row's local max,
+    ``l`` the local sum of ``exp(s - m)``, ``acc`` the local sum of
+    ``exp(s - m) v`` (``m``'s dims, then the value dim). Returns the rows'
+    ``(max, sum, acc)`` over every rank's keys: the max all-reduced, the
+    sums rescaled by ``exp(m - max)`` and all-reduced. A block whose keys
+    are all masked (scores at a large negative) gets weight ``exp(m - max)
+    = 0``. Outside a context, or on one model rank, the arguments."""
+    import torch.distributed as dist
+
+    ctx = current()
+    ax = ctx.model_split() if ctx is not None else None
+    if ax is None:
+        return m, l, acc
+    top = all_reduce_(m.clone(), (ax,), op=dist.ReduceOp.MAX)
+    w = torch.exp(m - top)
+    return top, all_reduce_(l * w, (ax,)), all_reduce_(acc * w[..., None], (ax,))

@@ -11,13 +11,34 @@ under NCCL (one rank per card), ``"cpu"`` under gloo (the CPU tests' ranks).
 Without a process group a builder raises: the sharded path never runs a
 host loop in its place.
 
-``make_production_mesh`` (the reference's 512-chip TPU mesh) waits for the
-dry-run slice; the reference's ``HW`` table holds a TPU's figures and has no
-counterpart here.
+``make_production_mesh`` builds the reference's production shapes and
+names, ``(16, 16)`` ("data", "model") or ``(2, 16, 16)`` ("pod", "data",
+"model"), over a process group of 256 or 512 ranks: the same shapes keep
+every sanitizing decision and every per-rank shape the reference's. The
+dry-run builds it over a fake process group of that size (one process
+traces rank 0's program; see ``launch/dryrun.py``).
+
+``HW`` is the card's table for the dry-run's roofline. Its figures are
+NVIDIA's data sheet for the H100 SXM5 80GB HBM3 at its 700 W power limit,
+dense rates: they are not measurements of this repo. The network is a
+model of a machine this repo has not run on: 8 cards a node joined by
+NVLink (450 GB/s each way a card), nodes joined by one 400 Gb/s
+InfiniBand port a card (50 GB/s each way), as in a DGX H100.
 """
 from __future__ import annotations
 
-__all__ = ["make_local_mesh", "make_production_mesh", "make_staging_mesh", "mesh_device_type"]
+__all__ = ["HW", "make_local_mesh", "make_production_mesh", "make_staging_mesh",
+           "mesh_device_type"]
+
+# H100 SXM5 80GB HBM3, 700 W: data-sheet figures (dense), per card
+HW = {
+    "peak_bf16_flops": 989e12,
+    "hbm_bw": 3.35e12,  # bytes/s
+    "hbm_bytes": 80e9,
+    "nvlink_bw": 450e9,  # bytes/s each way, within a node
+    "node_size": 8,  # cards a node
+    "ib_bw": 50e9,  # bytes/s each way across nodes: one 400 Gb/s port a card
+}
 
 
 def _world() -> int:
@@ -38,18 +59,26 @@ def mesh_device_type() -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _mesh(shape: tuple, names: tuple):
+def _mesh(shape: tuple, names: tuple, device_type=None):
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(mesh_device_type(), tuple(int(d) for d in shape),
+    return init_device_mesh(device_type or mesh_device_type(), tuple(int(d) for d in shape),
                             mesh_dim_names=tuple(names))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "make_production_mesh (the reference's 512-chip TPU mesh) is not ported yet; "
-        "it comes with the dry-run slice"
-    )
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """The reference's production mesh over the current process group,
+    which must have 256 (``multi_pod=False``) or 512 ranks. ``device_type``
+    (default: the backend's, see ``mesh_device_type``) is the device its
+    tensors live on; a fake group's trace names it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 512 if multi_pod else 256
+    world = _world()
+    if world != need:
+        raise ValueError(f"the production mesh {shape} needs a process group of {need} ranks, "
+                         f"this one has {world}")
+    return _mesh(shape, axes, device_type)
 
 
 def make_staging_mesh(

@@ -13,9 +13,27 @@ float32 and is cast to the activations' dtype; ``dA``, its cumulative sum,
 the decay matrix and the carried state run in that dtype (bfloat16 in
 serving). Everything here is plain PyTorch: the reference computes SSD with
 ``einsum``, ``lax.scan`` and ``lax.conv_general_dilated``, outside any
-Pallas kernel. Under ``distributed.ctx.activation_sharding`` the mixer
-runs whole on every model rank, its weights gathered (``fetch``); its
-tensor parallelism is still to come.
+Pallas kernel.
+
+Under ``distributed.ctx.activation_sharding`` the mixer runs split over the
+tensor axis by SSD heads where they divide it (else whole on every model
+rank, its weights gathered): rank r takes heads [r H/M, (r+1) H/M).
+``in_z``, ``in_x`` and ``in_dt`` are column blocks, ``out_proj`` a row
+block whose partial sums are all-reduced; ``A_log``, ``D``, ``dt_bias``
+and ``norm`` are the heads' (channels') slices. B and C are shared by all
+heads of a group, so ``in_b``/``in_c`` are used whole on every rank. The
+depthwise conv runs on the rank's channels: the x channels of its heads
+and every B/C channel, cut from ``conv_w``/``conv_b`` fetched whole (they
+are stored split contiguously over the concatenated channels, which does
+not line up with the heads). The gated RMSNorm normalizes over the whole
+``d_inner``: its sum of squares is all-reduced over "model".
+
+A cache under a mesh keeps ``cache_specs``' layout: ``ssm`` (B, H, N, P)
+split over H lines up with the heads and is read and written in place;
+``conv`` (B, d_conv-1, ch) is split contiguously over ch. A rank reads the
+conv window gathered over "model" and takes its channels; the mixer
+returns the new window whole (the x channels of every head gathered over
+"model"), and the caller writes its own block of it (``ctx.model_block``).
 """
 from __future__ import annotations
 
@@ -25,7 +43,16 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..distributed.ctx import fetch
+from ..distributed.ctx import (
+    MODEL,
+    constrain,
+    fetch,
+    local_of,
+    model_gather,
+    model_input,
+    model_part,
+    model_whole,
+)
 from .config import ModelConfig
 from .layers import dense_init, rmsnorm
 
@@ -69,13 +96,68 @@ def mamba_init(generator: torch.Generator, cfg: ModelConfig, dtype=torch.float32
     }
 
 
-def _in_proj(p, x):
-    """The unfused input projections: (z, xbc, dt_raw)."""
+def _weights(p: dict, cfg: ModelConfig):
+    """(weights at their use, heads): the whole mixer's (``heads`` None), or
+    under a mesh whose "model" the heads divide this rank's, with ``heads``
+    (h0, h1). Weights used whole in a computation that differs by rank take
+    a gradient summed over "model" (``model_input``)."""
+    s, di, nh, gn, conv_ch = _dims(cfg)
+    part = model_part(nh)
+    if part is None:
+        return {k: fetch(v) for k, v in p.items()}, None
+    r, M = part
+    lo, hi = r * di // M, (r + 1) * di // M
+
+    def channels(w):  # this rank's x channels, then every B/C channel
+        w = model_input(fetch(w))
+        return torch.cat([w[..., lo:hi], w[..., di:]], dim=-1)
+
+    w = {k: fetch(p[k], None, MODEL) for k in ("in_z", "in_x", "in_dt")}
+    w.update({k: model_input(fetch(p[k])) for k in ("in_b", "in_c")})
+    w.update({k: fetch(p[k], MODEL) for k in ("A_log", "D", "dt_bias", "norm")})
+    w.update(conv_w=channels(p["conv_w"]), conv_b=channels(p["conv_b"]),
+             out_proj=fetch(p["out_proj"], MODEL, None))
+    return w, (r * nh // M, (r + 1) * nh // M)
+
+
+def _in_proj(p, x, heads=None):
+    """The unfused input projections: (z, xbc, dt_raw); under a split a
+    ``model_input`` of ``x`` (its gradient summed over "model")."""
+    if heads is not None:
+        x = model_input(x)
     z = x @ p["in_z"].to(x.dtype)
     xbc = torch.cat([x @ p["in_x"].to(x.dtype), x @ p["in_b"].to(x.dtype),
                      x @ p["in_c"].to(x.dtype)], dim=-1)
     dt_raw = x @ p["in_dt"].to(x.dtype)
     return z, xbc, dt_raw
+
+
+def _group_heads(t: torch.Tensor, rep: int, dim: int, heads) -> torch.Tensor:
+    """B or C per head (``jnp.repeat``: head h reads group h // rep), for
+    this rank's heads."""
+    t = t.repeat_interleave(rep, dim=dim)
+    return t if heads is None else t.narrow(dim, heads[0], heads[1] - heads[0])
+
+
+def _gated_norm(y, z, w, cfg: ModelConfig, heads) -> torch.Tensor:
+    """rmsnorm(y * silu(z)) over the whole d_inner: under a split each
+    rank's sum of squares is all-reduced over "model"."""
+    h = y * F.silu(z)
+    if heads is None:
+        return rmsnorm(h, w, cfg.norm_eps)
+    dt = h.dtype
+    hf = h.float()
+    ss = constrain(torch.sum(hf * hf, dim=-1, keepdim=True), src="partial")
+    hf = hf * torch.rsqrt(model_input(ss) / cfg.ssm.d_inner(cfg.d_model) + cfg.norm_eps)
+    return (hf * w.float()).to(dt)
+
+
+def _whole_channels(xbc: torch.Tensor, di_local: int, heads) -> torch.Tensor:
+    """Conv inputs of this rank's channels -> every channel (the x channels
+    of every head gathered over "model"), for the conv cache."""
+    if heads is None:
+        return xbc
+    return torch.cat([model_gather(xbc[..., :di_local], -1), xbc[..., di_local:]], dim=-1)
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -141,38 +223,42 @@ def ssd_chunked(xs, dt, A, B_, C_, chunk: int):
     return y[:, :S], carry
 
 
-def _out_proj(p, y):
-    return y @ p["out_proj"].to(y.dtype)
+def _out_proj(p, y, heads=None):
+    out = y @ p["out_proj"].to(y.dtype)
+    return out if heads is None else constrain(out, src="partial")
 
 
 def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, return_cache: bool = False):
     """Full-sequence forward (prefill). Returns (out, cache or None), the
-    cache's conv leaf zero-padded on the left when S < d_conv - 1."""
+    cache's conv leaf zero-padded on the left when S < d_conv - 1. Under a
+    split the cache's ``ssm`` holds this rank's heads and its ``conv`` every
+    channel (see the module's docstring)."""
     s, di, nh, gn, conv_ch = _dims(cfg)
     Bb, S, d = x.shape
-    p = {k: fetch(v) for k, v in p.items()}  # whole under a mesh
-    z, xbc, dt_raw = _in_proj(p, x)
+    p, heads = _weights(p, cfg)
+    z, xbc, dt_raw = _in_proj(p, x, heads)
+    nh_l = dt_raw.shape[-1]
+    di_l = nh_l * s.head_dim
 
     conv_act = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
-    xs = conv_act[..., :di]
-    B_ = conv_act[..., di:di + gn].reshape(Bb, S, s.n_groups, s.d_state)
-    C_ = conv_act[..., di + gn:].reshape(Bb, S, s.n_groups, s.d_state)
+    xs = conv_act[..., :di_l]
+    B_ = conv_act[..., di_l:di_l + gn].reshape(Bb, S, s.n_groups, s.d_state)
+    C_ = conv_act[..., di_l + gn:].reshape(Bb, S, s.n_groups, s.d_state)
     rep = nh // s.n_groups
-    # jnp.repeat: each group's rows repeated in place (head h reads group h // rep)
-    B_h = B_.repeat_interleave(rep, dim=2)
-    C_h = C_.repeat_interleave(rep, dim=2)
+    B_h = _group_heads(B_, rep, 2, heads)
+    C_h = _group_heads(C_, rep, 2, heads)
 
     dt = _softplus_dt(dt_raw, p["dt_bias"], x.dtype)
     A = -torch.exp(p["A_log"].float()).to(x.dtype)
-    xh = xs.reshape(Bb, S, nh, s.head_dim)
+    xh = xs.reshape(Bb, S, nh_l, s.head_dim)
     y, final_state = ssd_chunked(xh, dt, A, B_h, C_h, s.chunk)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    out = _out_proj(p, rmsnorm(y.reshape(Bb, S, di) * F.silu(z), p["norm"], cfg.norm_eps))
+    out = _out_proj(p, _gated_norm(y.reshape(Bb, S, di_l), z, p["norm"], cfg, heads), heads)
 
     cache = None
     if return_cache:
         # the last (d_conv - 1) pre-activation conv inputs
-        tail = xbc[:, -(s.d_conv - 1):, :]
+        tail = _whole_channels(xbc[:, -(s.d_conv - 1):, :], di_l, heads)
         short = s.d_conv - 1 - tail.shape[1]
         if short > 0:
             tail = F.pad(tail, (0, 0, short, 0))
@@ -182,35 +268,45 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, return_cache: bool =
 
 def mamba_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, cache: dict):
     """Single-token recurrent step. x: (B, 1, d). Returns (out (B, 1, d),
-    the new cache {"conv", "ssm"})."""
+    the new cache {"conv", "ssm"}). Under a mesh ``cache``'s leaves may be
+    split (``ShardedLeaf``): the conv window is read gathered over "model",
+    and the new one comes back whole (see the module's docstring)."""
     s, di, nh, gn, conv_ch = _dims(cfg)
     Bb = x.shape[0]
-    z, xbc, dt_raw = _in_proj(p, x[:, 0])
+    p, heads = _weights(p, cfg)
+    z, xbc, dt_raw = _in_proj(p, x[:, 0], heads)
+    nh_l = dt_raw.shape[-1]
+    di_l = nh_l * s.head_dim
 
-    conv_act, new_conv = _conv_step(cache["conv"], xbc, p["conv_w"], p["conv_b"])
+    window = model_whole(cache["conv"])  # (B, d_conv-1, ch): every channel
+    mine = window if heads is None else torch.cat(
+        [window[..., heads[0] * s.head_dim:heads[1] * s.head_dim], window[..., di:]], dim=-1)
+    conv_act = _conv_step(mine, xbc, p["conv_w"], p["conv_b"])
+    new_conv = torch.cat([window[:, 1:], _whole_channels(xbc, di_l, heads)[:, None, :]],
+                         dim=1)
 
-    xs = conv_act[..., :di]
-    B_ = conv_act[..., di:di + gn].reshape(Bb, s.n_groups, s.d_state)
-    C_ = conv_act[..., di + gn:].reshape(Bb, s.n_groups, s.d_state)
+    xs = conv_act[..., :di_l]
+    B_ = conv_act[..., di_l:di_l + gn].reshape(Bb, s.n_groups, s.d_state)
+    C_ = conv_act[..., di_l + gn:].reshape(Bb, s.n_groups, s.d_state)
     rep = nh // s.n_groups
-    B_h = B_.repeat_interleave(rep, dim=1)  # (B, H, N)
-    C_h = C_.repeat_interleave(rep, dim=1)
+    B_h = _group_heads(B_, rep, 1, heads)  # (B, H, N)
+    C_h = _group_heads(C_, rep, 1, heads)
 
     dt = _softplus_dt(dt_raw, p["dt_bias"], x.dtype)
     A = -torch.exp(p["A_log"].float()).to(x.dtype)
-    xh = xs.reshape(Bb, nh, s.head_dim)
-    y, new_state = _ssd_step(cache["ssm"], xh, dt, A, B_h, C_h)
+    xh = xs.reshape(Bb, nh_l, s.head_dim)
+    y, new_state = _ssd_step(local_of(cache["ssm"]), xh, dt, A, B_h, C_h)
     y = y + xh * p["D"].to(x.dtype)[None, :, None]
-    out = _out_proj(p, rmsnorm(y.reshape(Bb, di) * F.silu(z), p["norm"], cfg.norm_eps))
+    out = _out_proj(p, _gated_norm(y.reshape(Bb, di_l), z, p["norm"], cfg, heads), heads)
     return out[:, None, :], {"conv": new_conv, "ssm": new_state}
 
 
 def _conv_step(conv_cache, xbc, w, b):
-    """One position of the causal conv over the cached window: (the
-    activated conv output (B, ch), the next conv cache)."""
+    """One position of the causal conv over the cached window: the
+    activated conv output (B, ch)."""
     window = torch.cat([conv_cache, xbc[:, None, :]], dim=1)  # (B, d_conv, ch)
     conv_out = torch.einsum("bwc,wc->bc", window.to(xbc.dtype), w.to(xbc.dtype))
-    return F.silu(conv_out + b.to(xbc.dtype)), window[:, 1:]
+    return F.silu(conv_out + b.to(xbc.dtype))
 
 
 def _ssd_step(state, xh, dt, A, B_h, C_h):

@@ -25,7 +25,17 @@ paged writes among them).
 
 Under ``distributed.ctx.activation_sharding`` (model sharding) each layer
 places its own collectives (see ``distributed.ctx``); the embedding is
-vocab-parallel and the logits stay split over the vocabulary.
+vocab-parallel and the logits stay split over the vocabulary
+(``whole_logits`` gathers them). ``prefill``, ``prefill_chunk``,
+``decode_step`` and ``encode`` take params as DTensors (laid out by
+``make_shardings(param_specs)``) or their ``local_view``, and a cache of
+DTensors laid out by ``make_shardings(cache_specs)``: the layers see its
+``local_view`` and write its local blocks in place, and the caller gets the
+same DTensor tree back. Token inputs (``tokens``, ``token``, a per-lane
+``pos``, ``src_embeds``) are the whole batch on every rank; each data shard
+takes its rows where they split over the dp axes (``ctx.rows``), and runs
+the whole batch otherwise. ``enc_out`` is ``encode``'s output under the same
+context (this shard's rows), and so are the logits.
 
 ``forward_train`` runs the groups in a third mode, "train", with no cache
 (a Mamba sub-layer writes no state). ``cfg.remat`` wraps each block as the
@@ -53,7 +63,22 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
-from ..distributed.ctx import DP, MODEL, constrain, current, entered, fetch, model_input, model_part
+from ..distributed.ctx import (
+    DP,
+    MODEL,
+    constrain,
+    current,
+    entered,
+    fetch,
+    local_of,
+    local_view,
+    model_block,
+    model_gather,
+    model_input,
+    model_part,
+    rows,
+    rows_whole,
+)
 from .attention import (
     cross_apply,
     cross_init,
@@ -62,6 +87,7 @@ from .attention import (
     gqa_init,
     mla_apply,
     mla_init,
+    write_cache,
 )
 from .config import GroupSpec, LayerSpec, ModelConfig
 from .layers import dense_init, ffn_apply, ffn_init, rmsnorm
@@ -76,6 +102,7 @@ __all__ = [
     "prefill_chunk",
     "decode_step",
     "encode",
+    "whole_logits",
 ]
 
 
@@ -218,7 +245,8 @@ def _block_apply(
             x = x + o
             if c is not None:
                 for k, v in nc.items():  # in place: callers read the cache they passed
-                    c["ssm_cache"][k].copy_(v)
+                    leaf = c["ssm_cache"][k]
+                    local_of(leaf).copy_(model_block(v, leaf))
         if spec.cross_attn:
             h = rmsnorm(x, p["ln_cross"], eps)
             cc = c.get("cross") if c is not None else None
@@ -228,10 +256,9 @@ def _block_apply(
                 if enc_out is None:
                     raise ValueError(f"{cfg.name}: cross-attention needs enc_out "
                                      "(encode's output) outside a cached decode step")
-                kv = cross_kv(p["cross"], enc_out, cfg)
-                if cc is not None:
-                    for k, v in kv.items():  # in place, for the decode steps to read
-                        cc[k].copy_(v)
+                kv = cross_kv(p["cross"], enc_out, cfg, cc)
+                if cc is not None:  # in place, for the decode steps to read
+                    write_cache(cc, kv, 0, enc_out.shape[1])
             x = x + cross_apply(p["cross"], h, kv, cfg)
         if spec.ffn == "dense":
             x = x + ffn_apply(p["ffn"], rmsnorm(x, p["ln_ffn"], eps), cfg)
@@ -388,11 +415,39 @@ def _unembed(params, cfg, x):
     return logits
 
 
+def _view(tree):
+    """The model's view of ``tree``: its ``local_view`` where it holds
+    DTensors (a sharded server's params or cache), else ``tree``."""
+    if tree is None or current() is None:
+        return tree
+    from torch.distributed.tensor import DTensor
+
+    from ..tree import tree_leaves
+
+    if any(isinstance(leaf, DTensor) for leaf in tree_leaves(tree)):
+        return local_view(tree)[0]
+    return tree
+
+
+def whole_logits(logits, cfg: ModelConfig, batch: int):
+    """Logits of a call under a mesh (this data shard's rows, split over
+    the vocabulary on the tensor axis) gathered whole: (``batch``, ...,
+    vocab), the same on every rank. Outside a context ``logits``."""
+    if model_part(cfg.vocab_size):
+        logits = model_gather(logits, -1)
+    return rows_whole(logits, batch)
+
+
 def encode(params, cfg: ModelConfig, src_embeds):
     """Encoder stack over precomputed frontend embeddings (B, S_src,
     frontend_dim), a tensor on the params' device: bidirectional, RoPE at
     positions arange(S_src), under ``cfg.remat`` where gradients are on.
-    Returns (B, S_src, d_model) in the compute dtype."""
+    Returns (B, S_src, d_model) in the compute dtype (under a mesh this
+    data shard's rows)."""
+    return _encode(_view(params), cfg, rows(src_embeds))
+
+
+def _encode(params, cfg: ModelConfig, src_embeds):
     x = src_embeds.to(_cdtype(cfg))
     if "frontend_proj" in params:
         x = x @ fetch(params["frontend_proj"].to(x.dtype))
@@ -412,7 +467,7 @@ def forward_train(params, cfg: ModelConfig, batch: dict):
     ``local_view`` and ``batch`` this data shard's rows; the logits come out
     split over the vocabulary on the tensor axis where it divides."""
     tokens = batch["tokens"]
-    enc_out = encode(params, cfg, batch["src_embeds"]) if cfg.is_encdec else None
+    enc_out = _encode(params, cfg, batch["src_embeds"]) if cfg.is_encdec else None
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _, aux = _run_groups(cfg, cfg.groups, params["groups"], x, positions, None, None,
@@ -437,11 +492,13 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, cache, start: int, enc_out=N
     sub-layer in "prefill" mode recomputes its state from scratch over just
     this chunk (as the reference's does), so chunked callers (the serving
     scheduler) gate on a fully-paged cache."""
-    x = _embed(params, cfg, tokens)
+    view = _view(params)
+    tokens = rows(tokens)
+    x = _embed(view, cfg, tokens)
     positions = start + torch.arange(tokens.shape[1], device=tokens.device)
-    x, new_cache, _ = _run_groups(cfg, cfg.groups, params["groups"], x, positions, cache,
-                                  start, cfg.causal, enc_out, "prefill")
-    return _unembed(params, cfg, x[:, -1:]), new_cache
+    x, _, _ = _run_groups(cfg, cfg.groups, view["groups"], x, positions, _view(cache), start,
+                          cfg.causal, enc_out, "prefill")
+    return _unembed(view, cfg, x[:, -1:]), cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
@@ -450,12 +507,15 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
     writes its cache at its own position and attends up to it). An enc-dec
     model reads the cross keys and values its prefill cached: ``enc_out``
     is not needed."""
-    x = _embed(params, cfg, token)
+    view = _view(params)
+    token = rows(token)
     if isinstance(pos, torch.Tensor):
+        pos = rows(pos) if pos.dim() else pos
         positions = pos.to(device=token.device, dtype=torch.int32).reshape(-1, 1)
     else:
         positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
                                device=token.device)
-    x, new_cache, _ = _run_groups(cfg, cfg.groups, params["groups"], x, positions, cache,
-                                  pos, cfg.causal, enc_out, "decode")
-    return _unembed(params, cfg, x), new_cache
+    x = _embed(view, cfg, token)
+    x, _, _ = _run_groups(cfg, cfg.groups, view["groups"], x, positions, _view(cache), pos,
+                          cfg.causal, enc_out, "decode")
+    return _unembed(view, cfg, x), cache

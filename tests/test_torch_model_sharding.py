@@ -20,7 +20,8 @@ the sharded train step, elastic checkpoints and ``launch/train.py
   ``compress_grads`` and remat "dots"; SABLE on ``(2, 2)`` with each rank's
   sub-pattern plan; DeepSeek-V2's expert-parallel forward (both MoE paths)
   against the reference at 2e-3 and one train step with its aux loss;
-  mamba2 and seamless on ``(2, 2)``; a checkpoint saved on ``(4, 2)`` and
+  mamba2 (its mixer split by SSD heads) and seamless (cross-attention split
+  by heads) on ``(2, 2)``; a checkpoint saved on ``(4, 2)`` and
   restored on ``(2, 4)`` and in one process; ``save_async`` of DTensors
   updated in place while it writes; the bytes ``ctx.moved_bytes()`` counts
   in a step against ``tools/shard_volume.py``.
@@ -536,6 +537,13 @@ RANK = """
             if c.is_encdec:
                 b["src_embeds"] = torch.randn(4, 12, c.frontend_dim, generator=g)
             train(arch, c, p, b, meshes[rank // 4], pc, steps=1)
+            if not arch.endswith("sable"):  # the mixer's / cross-attention's split
+                from repro_torch.models import attention, ssm
+                with ctx.activation_sharding(meshes[1], pc):
+                    info.setdefault("split", {})[arch] = (
+                        ssm._weights({k: torch.zeros(v.shape[1:]) for k, v in
+                                      p["groups"][0]["sub0"]["mixer"].items()}, c)[1]
+                        if arch.startswith("mamba") else attention._cross_kv_split(c, None))
             if arch.endswith("sable"):
                 pats = layers.sable_patterns(c)
                 mi = meshes[0].get_local_rank("model")
@@ -787,8 +795,9 @@ def test_moe_train_step_with_aux_loss_matches_unsharded(runs):
 @pytest.mark.parametrize("arch", [SABLE, "mamba2-1.3b", "seamless-m4t-large-v2"])
 def test_two_by_two_step_matches_unsharded(runs, arch):
     """One step on (2, 2): SABLE (each rank's K2 on its own sub-pattern,
-    whose plan key is in the plan cache), and the families that run whole
-    on each model rank (Mamba-2, cross-attention)."""
+    whose plan key is in the plan cache), the Mamba-2 mixer split by SSD
+    heads (4 of 8 a rank) and seamless's cross-attention split by heads (2
+    of 4 a rank, its K/V heads with them)."""
     rank = 0 if arch == SABLE else 4
     cfg = dataclasses.replace(_cfg(arch), compute_dtype="float32")
     params = ttr.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
@@ -799,6 +808,10 @@ def test_two_by_two_step_matches_unsharded(runs, arch):
         batch["src_embeds"] = torch.randn(4, 12, cfg.frontend_dim, generator=g)
     want = _unsharded(cfg, params, batch, 1, tsh.ParallelConfig(compress_grads=False))
     _check_against_unsharded(runs["out"][rank], runs["info"][rank], arch, want, 1)
+    if arch == "mamba2-1.3b":
+        assert [runs["info"][r]["split"][arch] for r in range(4, 8)] == [[0, 4], [4, 8]] * 2
+    elif arch != SABLE:
+        assert all(runs["info"][r]["split"][arch] for r in range(4, 8))
     if arch == SABLE:
         hashes = [runs["info"][r]["sub_hashes"] for r in range(4)]
         assert all(all(i["sub_plans"]) for i in runs["info"][:4])

@@ -323,7 +323,8 @@ def test_sharded_arguments_are_checked():
         stage_spmv(v, mesh=_Outside())
     with pytest.raises(ValueError, match="not the mesh's"):
         stage_spmv(v, mesh=ShapeMesh(("shards",), (1,)), device="cuda")
-    with pytest.raises(NotImplementedError, match="dry-run slice"):
+    # the production mesh needs a process group of 256 ranks (512 multi-pod)
+    with pytest.raises((RuntimeError, ValueError), match="process group"):
         tmesh.make_production_mesh()
 
 
