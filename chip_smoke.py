@@ -335,6 +335,36 @@ Phases, each printing its lines:
             FLOPs must equal FlopCounterMode's over the run; the traced
             peak beside max_memory_allocated, the roofline's largest term
             beside the measured ms.
+18. examples  drives the examples (examples_torch/) and the archs never
+            served on the card before: (a) K2 at train_e2e's own FFN tables
+            (SableConfig 64 x 64, density 0.4, d_model 512, d_ff 1024;
+            T = 8 x 128) in float32 against its plain version, timed as in
+            9a; (b) the four scripts as subprocesses side by side, with the
+            flags the reference's are documented with, in a plan directory
+            of their own where train_e2e's and llama3-8b-sable's FFN plans
+            are pinned to cuda; each reports its own launch counts in its
+            JSON line: quickstart (K1 2 and K2 1 launches, y and Y against
+            the dense oracle within 1e-5 relative), pattern_reuse twice
+            (1 miss and 20 hits; the second process runs 0 benchmarks),
+            serve_blockwise on llama3-8b and llama3-8b-sable (K2 3 times a
+            layer a forward), train_e2e --steps 300 --d-model 512 --layers
+            8 --sable (K2 3 times a layer a step, checkpoints at 100, 200,
+            300), and the resume check: --steps 250 stopped at 150 (a
+            checkpoint at 100) and rerun, against an uninterrupted run,
+            under --deterministic within 1e-5 at step 250 (bit for bit
+            printed), and as a user runs it (atomics; reported); (c)
+            granite-8b and nemotron-4-15b whole and chameleon-34b cut to 24
+            of 48 layers at their published widths: first 2 layers in
+            float32 (TF32 off), the prefill logits of a 16-token prompt on
+            the card against the port on the CPU from the same params and 4
+            greedy decode steps against prefills over the longer sequence,
+            each within 1e-4 of max|logits|; then in bfloat16 from --seed
+            through ServeEngine.generate, 8 prompts of 512 tokens and 64
+            greedy new tokens: prefill ms, decode ms a step, tokens/s, peak
+            memory, no kernel launched (dense FFNs), torch.profiler
+            breakdowns of the prefill and one decode step (busy share), and
+            granite's tied head (x @ embed^T) at decode beside a row-major
+            copy.
 
 Bounds: bytes over 3.35 TB/s or operations over the dtype's peak, the
 larger; float32's peak is the 3xTF32 rate (494.7 / 3 TFLOP/s), and
@@ -369,7 +399,10 @@ shard_contiguous_*, shard_mesh_*, shard_tune_* and shard_warm_* for the
 rest of phase 15; shard_train_* and shard_ckpt_* on K2 for 16a and 16c,
 shard_moe_{dropless,capacity}_launches on K2 and K3 for 16b;
 shard_serve_{sable,ds}_* on K2 and shard_serve_ds_launches on K3 for 17a,
-dryrun_prefill_* and dryrun_<cell>_peak_gb on K2 for 17c and 17b) and
+dryrun_prefill_* and dryrun_<cell>_peak_gb on K2 for 17c and 17b;
+ex_e2e_{in,out}_f32_* on K2 for 18a, ex_*_launches on K1 and K2 and
+ex_resume[_det]_{rel,bitwise}, ex_train_step_ms on K2 for 18b,
+arch_{granite,nemotron,chameleon}_* and phase18_s on K2 for 18c) and
 {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside this script, it exits
 non-zero and prints no result.
@@ -1422,9 +1455,11 @@ def pin_strategy(m, patterns, backend: str, dev) -> None:
     tlin._STRATEGY_REGISTRY.clear()
 
 
-def time_ffn_k2(args, torch, kops, kref, m, dev, cases=None, dtypes=None, label="phase 9a"):
-    """K2 at the FFN shapes (896 tiles of 128 x 128; `in`: X (4096, T) ->
-    (14336, T), `out`: X (14336, T) -> (4096, T)) at each (shape, T) of
+def time_ffn_k2(args, torch, kops, kref, m, dev, cases=None, dtypes=None, label="phase 9a",
+                cfg=None):
+    """K2 at the FFN shapes of ``cfg`` (default llama3-8b-sable: 896 tiles
+    of 128 x 128; `in`: X (4096, T) -> (14336, T), `out`: X (14336, T) ->
+    (4096, T)) at each (shape, T) of
     ``cases`` (default prefill T = 4096 and decode T = 8) in each of
     ``dtypes`` (default both), on the tables and the transposed tiles the
     cuda strategy builds: each held against its plain version, timed beside
@@ -1434,13 +1469,14 @@ def time_ffn_k2(args, torch, kops, kref, m, dev, cases=None, dtypes=None, label=
 
     tlin = m["tlin"]
     ext, flush = _build.load_kernels(), l2_flush(torch)
-    cfg = m["get_config"]("llama3-8b-sable")
+    cfg = cfg or m["get_config"]("llama3-8b-sable")
     pats = m["tlayers"].sable_patterns(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
     cases = cases or (("prefill", SERVE_B * SERVE_P), ("decode", SERVE_B))
     dtypes = dtypes or (torch.bfloat16, torch.float32)
     records = {}
-    print(f"{label}: K2 at llama3-8b-sable's FFN shapes (896 tiles of 128 x 128)")
+    sizes = ", ".join(f"{n} {p.n_tiles} tiles of {p.tm} x {p.tk}" for n, p in pats.items())
+    print(f"{label}: K2 at {cfg.name}'s FFN shapes ({sizes})")
     for pname, pat in pats.items():
         t = tlin._tables(pat, dev)
         for shape, T in cases:
@@ -2249,8 +2285,10 @@ def check_moe_model(args, torch, kops, m, dev, arch, n_moe):
                 CHECK_B, CHECK_P, CHECK_STEPS, seed=args.seed + 21)
 
 
-def check_model(args, torch, kops, m, dev, cfg, label, mixer, B, P, n, seed, cf=None):
-    """A float32 model at full width (TF32 off): with MoE layers, the prefill
+def check_model(args, torch, kops, m, dev, cfg, label, mixer, B, P, n, seed, cf=None,
+                params=None):
+    """A float32 model at full width (TF32 off; ``params`` drawn from
+    ``seed`` unless given): with MoE layers, the prefill
     logits through the dropless path (K3 twice and K2 once a MoE layer) match
     the capacity path with capacity_factor ``cf`` (default E / top_k; either
     drops nothing) within SERVE_TOL of max|logits|; ``n`` greedy decode steps
@@ -2259,7 +2297,8 @@ def check_model(args, torch, kops, m, dev, cfg, label, mixer, B, P, n, seed, cf=
     ttr = m["ttr"]
     mc = cfg.moe
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = ttr.init_params(cfg, gen, device=dev)
+    if params is None:
+        params = ttr.init_params(cfg, gen, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
     want_k = moe_layers(cfg)
     with torch.inference_mode():
@@ -2296,6 +2335,7 @@ def check_model(args, torch, kops, m, dev, cfg, label, mixer, B, P, n, seed, cf=
         raise AssertionError(f"{label}: the float32 full-width check failed")
     del params, cache, lg, want
     torch.cuda.empty_cache()
+    return worst
 
 
 def moe_targets(m):
@@ -4797,6 +4837,364 @@ def phase_sharded_serve(args, torch, kops, dev):
     return keys
 
 
+# ---------------------------------------------------------------------- #
+# phase 18: the examples on the card, and the archs never served there
+# ---------------------------------------------------------------------- #
+EXAMPLES = ROOT / "examples_torch"
+# the examples' runs, with the flags the reference's are documented with
+EX_B, EX_P, EX_G = 2, 8, 8  # serve_blockwise's --batch, --prompt-len, --gen
+EX_E2E = ["--d-model", "512", "--layers", "8", "--sable"]  # train_e2e's documented size
+EX_E2E_STEPS = 300
+EX_RESUME = (250, 150)  # the resume check: --steps, and the preempted run's --stop-at
+EX_RESUME_TOL = 1e-5  # the loss at the last step, resumed vs uninterrupted, relative
+EX_TIMEOUT = 600  # s, a script
+# part B: (arch, layers served: None = all), in bfloat16 at the published widths
+ARCHS = (("granite-8b", None), ("nemotron-4-15b", None), ("chameleon-34b", 24))
+ARCH_B, ARCH_P, ARCH_G = 8, 512, 64  # generate: prompts, prompt tokens, new tokens
+ARCH_CHECK_LAYERS, ARCH_CHECK_P = 2, 16  # card vs CPU: float32, B = 1
+
+
+def example_module(name):
+    """``examples_torch/<name>.py`` as a module (its functions, no run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class examples_running:
+    """Example scripts started as subprocesses (output to files under
+    ``tmp``), each joined by ``finish``; any still running at exit is
+    killed."""
+
+    def __init__(self, tmp, env):
+        self.tmp, self.env, self.procs = Path(tmp), env, {}
+
+    def __enter__(self):
+        return self
+
+    def start(self, tag, name, argv):
+        out, err = (open(self.tmp / f"{tag}.{k}", "w") for k in ("out", "err"))
+        cmd = [sys.executable, str(EXAMPLES / f"{name}.py"), *argv]
+        proc = subprocess.Popen(cmd, stdout=out, stderr=err, env=self.env, cwd=str(ROOT))
+        self.procs[tag] = (cmd, proc, time.perf_counter(), out, err)
+
+    def finish(self, tag, show=4) -> dict:
+        """The script's JSON line, after its exit code 0; its last ``show``
+        lines before it printed."""
+        cmd, proc, t0, out, err = self.procs.pop(tag)
+        try:
+            rc = proc.wait(timeout=max(1.0, EX_TIMEOUT - (time.perf_counter() - t0)))
+        finally:
+            out.close()
+            err.close()
+        lines = (self.tmp / f"{tag}.out").read_text().strip().splitlines()
+        print(f"  {tag}: {' '.join(['python'] + cmd[1:]).replace(str(ROOT) + '/', '')}: rc {rc} "
+              f"in {time.perf_counter() - t0:.1f} s (run beside the others)")
+        for line in lines[-show - 1:-1]:
+            print(f"    {line[:300]}")
+        if rc != 0:
+            print((self.tmp / f"{tag}.err").read_text()[-3000:], file=sys.stderr)
+            raise AssertionError(f"{tag}: exit code {rc}")
+        return json.loads(lines[-1])
+
+    def __exit__(self, *exc):
+        for cmd, proc, _, out, err in self.procs.values():
+            proc.kill()
+            proc.wait()
+            out.close()
+            err.close()
+
+
+def ex_expect(tag, ok, text):
+    print(f"  {tag}: {text} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: {text}")
+
+
+def phase_examples(args, torch, kops, kref, m, dev):
+    """18a: K2 at train_e2e's own tables; 18b: the four example scripts on
+    the card in subprocesses, run side by side. Returns {kernel: keys}."""
+    import os
+    import tempfile
+
+    tr = example_module("train_e2e")
+    e2e = tr.parse([*EX_E2E, "--steps", str(EX_E2E_STEPS)])
+    e2e_cfg = tr.make_config(e2e)
+    sable = m["get_config"]("llama3-8b-sable", reduced=True)
+    print("phase 18a: K2 at train_e2e's FFN tables (SableConfig 64 x 64, density 0.4; "
+          f"T = batch x seq = {e2e.batch * e2e.seq}), float32")
+    k2 = time_ffn_k2(args, torch, kops, kref, m, dev, cases=(("train", e2e.batch * e2e.seq),),
+                     dtypes=(torch.float32,), label="phase 18a", cfg=e2e_cfg)
+    keys = {"bsr_spmv": {}, "bsr_spmm": {}}
+    for (pname, shape, dname), r in k2.items():
+        for f in ("ms", "bound_ms", "fma_bound_ms", "plain_ms", "library_ms", "max_abs_err",
+                  "transpose_ms"):
+            if f in r:
+                keys["bsr_spmm"][f"ex_e2e_{pname}_f32_{f}"] = r[f]
+
+    print("phase 18b: the examples (examples_torch/) in subprocesses on the card, side by side "
+          "(the FFN plans of train_e2e and llama3-8b-sable pinned to cuda in their plan cache)")
+    with tempfile.TemporaryDirectory(prefix="repro-examples-") as tmp:
+        plans = os.path.join(tmp, "plans")
+        m["tcache"].set_default_cache(m["tcache"].PlanCache(plans))
+        try:
+            pin_strategy(m, [*m["tlayers"].sable_patterns(e2e_cfg).values(),
+                             *m["tlayers"].sable_patterns(sable).values()], "cuda", dev)
+        finally:
+            m["tcache"].set_default_cache(None)
+            m["tlin"]._STRATEGY_REGISTRY.clear()
+        # nine processes side by side share the host's cores
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_CACHE_DIR=plans,
+                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // 9)))
+        steps, stop = EX_RESUME
+        ck = {k: os.path.join(tmp, k) for k in ("e2e", "whole", "cut", "whole_det", "cut_det")}
+        resume = [*EX_E2E, "--steps", str(steps)]
+        with examples_running(tmp, env) as ex:
+            ex.start("quickstart", "quickstart", [])
+            ex.start("pattern_reuse", "pattern_reuse", [])
+            for arch in ("llama3-8b", "llama3-8b-sable"):
+                ex.start(f"serve {arch}", "serve_blockwise",
+                         ["--arch", arch, "--batch", str(EX_B), "--prompt-len", str(EX_P),
+                          "--gen", str(EX_G)])
+            ex.start("train_e2e", "train_e2e",
+                     [*EX_E2E, "--steps", str(EX_E2E_STEPS), "--ckpt", ck["e2e"]])
+            ex.start("train_e2e whole", "train_e2e", [*resume, "--ckpt", ck["whole"]])
+            ex.start("train_e2e cut", "train_e2e",
+                     [*resume, "--ckpt", ck["cut"], "--stop-at", str(stop)])
+            ex.start("train_e2e whole det", "train_e2e",
+                     [*resume, "--ckpt", ck["whole_det"], "--deterministic"])
+            ex.start("train_e2e cut det", "train_e2e",
+                     [*resume, "--ckpt", ck["cut_det"], "--stop-at", str(stop),
+                      "--deterministic"])
+
+            q = ex.finish("quickstart", show=5)
+            ok = (q["launches"]["bsr_spmv"] == 2 and q["launches"]["bsr_spmm"] == 1
+                  and q["spmv_rel"] <= TOL["torch.float32"]
+                  and q["spmm_rel"] <= TOL["torch.float32"] and q["tripled"])
+            ex_expect("quickstart", ok, f"K1/K2 launches {q['launches']['bsr_spmv']}/"
+                      f"{q['launches']['bsr_spmm']} (expected 2/1); spmv rel "
+                      f"{q['spmv_rel']:.3e}, spmm rel {q['spmm_rel']:.3e} against the dense "
+                      f"oracle (tol {TOL['torch.float32']:g}); 3x values -> 3x result "
+                      f"{q['tripled']}")
+            cold = ex.finish("pattern_reuse")
+            ex.start("pattern_reuse warm", "pattern_reuse", [])
+            for arch in ("llama3-8b", "llama3-8b-sable"):
+                sv = ex.finish(f"serve {arch}", show=2)
+                cfg = m["get_config"](arch, reduced=True)
+                want = 3 * cfg.n_layers * EX_G if cfg.sable is not None else 0
+                ok = (sv["shape"] == [EX_B, EX_P + EX_G] and sv["launches"]["bsr_spmm"] == want
+                      and all(0 <= t < cfg.vocab_size for t in sv["sample"])
+                      and set(sv["sparse_plans"].values()) <= {"cuda"})
+                ex_expect(f"serve {arch}", ok, f"tokens {sv['shape']}, K2 launches "
+                          f"{sv['launches']['bsr_spmm']} (expected {want}: 3 FFN matmuls x "
+                          f"{cfg.n_layers} layers x {EX_G} forwards), plans "
+                          f"{sv['sparse_plans']}, prefill {sv['prefill_ms']:.1f} ms, "
+                          f"{sv['tokens_per_s']:.1f} tok/s")
+                keys["bsr_spmm"][f"ex_serve_{'sable' if cfg.sable else 'dense'}_launches"] = (
+                    sv["launches"]["bsr_spmm"])
+            t = ex.finish("train_e2e", show=3)
+            want = 3 * e2e.layers * EX_E2E_STEPS
+            ls = t["losses"]
+            ok = (t["step"] == EX_E2E_STEPS and t["launches"]["bsr_spmm"] == want
+                  and all(math.isfinite(v) for v in ls) and min(ls[-20:]) < ls[0]
+                  and sorted(os.listdir(ck["e2e"])) == [f"step_{n:08d}" for n in (100, 200, 300)])
+            ex_expect("train_e2e", ok, f"{t['params'] / 1e6:.1f}M params, {t['step']} steps, "
+                      f"loss {ls[0]:.4f} -> {ls[-1]:.4f}, median step "
+                      f"{t['step_ms_median']:.2f} ms, K2 launches {t['launches']['bsr_spmm']} "
+                      f"(expected {want}: 3 FFN matmuls x {e2e.layers} layers x "
+                      f"{EX_E2E_STEPS} steps), checkpoints {sorted(os.listdir(ck['e2e']))}")
+            keys["bsr_spmm"]["ex_train_launches"] = t["launches"]["bsr_spmm"]
+            keys["bsr_spmm"]["ex_train_step_ms"] = t["step_ms_median"]
+
+            # the resume check, run as a user runs it and under deterministic
+            # algorithms: only the latter can repeat the uninterrupted run
+            cut = {det: ex.finish(f"train_e2e cut{det}", show=1) for det in ("", " det")}
+            for det in ("", " det"):
+                ex.start(f"train_e2e resumed{det}", "train_e2e",
+                         [*resume, "--ckpt", ck["cut_det" if det else "cut"],
+                          *(["--deterministic"] if det else [])])
+            whole = {det: ex.finish(f"train_e2e whole{det}", show=1) for det in ("", " det")}
+            for det in ("", " det"):
+                res = ex.finish(f"train_e2e resumed{det}", show=1)
+                w, c = whole[det], cut[det]
+                rel = abs(res["loss"] - w["loss"]) / abs(w["loss"])
+                diverged = next((i + 1 for i, (a, b) in enumerate(zip(c["losses"], w["losses"]))
+                                 if a != b), None)
+                differs = next((i + 101 for i, (a, b) in enumerate(zip(res["losses"],
+                                                                       w["losses"][100:]))
+                                if a != b), None)
+                ok = (c["stopped"] and c["step"] == stop and res["resumed_from"] == 100
+                      and res["step"] == steps and len(res["losses"]) == steps - 100
+                      and (rel <= EX_RESUME_TOL or not det))
+                text = (f"stopped at {c['step']}, resumed from {res['resumed_from']} to "
+                        f"{res['step']}: loss at step {steps} {res['loss']:.7f} vs uninterrupted "
+                        f"{w['loss']:.7f}, rel {rel:.3e} (tol {EX_RESUME_TOL:g}"
+                        + ("" if det else ", reported, not gated: atomics") + f"); steps "
+                        f"101-{steps} bit for bit: "
+                        + ("yes" if differs is None else f"no, from step {differs}")
+                        + "; the stopped and the uninterrupted run, steps 1-150: "
+                        + ("bit for bit" if diverged is None else f"differ from step {diverged}"))
+                ex_expect(f"resume{det or ' (as run)'}", ok, text)
+                key = "_det" if det else ""
+                keys["bsr_spmm"][f"ex_resume{key}_rel"] = rel
+                keys["bsr_spmm"][f"ex_resume{key}_bitwise"] = differs is None
+            warm = ex.finish("pattern_reuse warm", show=3)
+            ok = (cold["cache"] == warm["cache"] == {"hits": 20, "misses": 1, "size": 1}
+                  and cold["launches"]["bsr_spmv"] > 0
+                  and cold["autotune_stats"]["benchmarks"] > 0
+                  and warm["autotune_stats"]["benchmarks"] == 0
+                  and warm["autotune_backend"] == cold["autotune_backend"])
+            ex_expect("pattern_reuse", ok, f"cache {cold['cache']}; K1 launches "
+                      f"{cold['launches']['bsr_spmv']}; first {cold['first_ms']:.1f} ms, then "
+                      f"{cold['rest_ms']:.2f} ms a matrix; autotune cold "
+                      f"{cold['autotune_stats']['benchmarks']} benchmarks -> "
+                      f"{cold['autotune_backend']}, a second process "
+                      f"{warm['autotune_stats']['benchmarks']} -> {warm['autotune_backend']}")
+    keys["bsr_spmv"]["ex_quickstart_launches"] = q["launches"]["bsr_spmv"]
+    keys["bsr_spmm"]["ex_quickstart_launches"] = q["launches"]["bsr_spmm"]
+    keys["bsr_spmv"]["ex_pattern_reuse_launches"] = cold["launches"]["bsr_spmv"]
+    return keys
+
+
+def arch_model(m, arch, layers, dtype):
+    """``arch`` at its published widths, params and compute in ``dtype``,
+    its one group of layers cut to ``layers`` (None: all)."""
+    cfg = m["get_config"](arch)
+    if layers is not None:
+        (g,) = cfg.groups
+        cfg = replace(cfg, groups=(replace(g, repeat=layers),))
+    return replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+
+
+def arch_check(args, torch, kops, m, dev, arch, seed) -> tuple:
+    """18c: ``arch`` at full width cut to ARCH_CHECK_LAYERS layers in float32
+    (TF32 off). The prefill logits of one ARCH_CHECK_P-token prompt on the
+    card against the port on the CPU from the same params, within SERVE_TOL
+    of max|logits|; then ``check_model``'s greedy decode steps against
+    prefills over the longer sequence. Returns (card vs CPU rel, decode rel)."""
+    from repro_torch.tree import tree_map
+
+    ttr = m["ttr"]
+    cfg = arch_model(m, arch, ARCH_CHECK_LAYERS, "float32")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = ttr.init_params(cfg, gen, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, ARCH_CHECK_P), generator=gen, device=dev)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card, _ = ttr.prefill(params, cfg, prompt, ttr.init_cache(cfg, 1, ARCH_CHECK_P,
+                                                                  device=dev))
+        host = tree_map(lambda t: t.to(cpu), params)
+        want, _ = ttr.prefill(host, cfg, prompt.to(cpu),
+                              ttr.init_cache(cfg, 1, ARCH_CHECK_P, device=cpu))
+    err, rel = rel_err(card.to(cpu), want)
+    ok = rel <= SERVE_TOL and bool(torch.isfinite(card).all())
+    print(f"  {arch}, {cfg.n_layers}-layer at full width, float32 ({param_counts(cfg, params)}): "
+          f"prefill logits of B=1 P={ARCH_CHECK_P} on the card vs the port on the CPU from the "
+          f"same params: max_abs_err={err:.3e} rel={rel:.3e} tol={SERVE_TOL:g} "
+          f"({time.perf_counter() - t0:.1f} s with the copy) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch}: card vs CPU logits, relative error {rel:.3e}")
+    del host, want, card
+    worst = check_model(args, torch, kops, m, dev, cfg, arch, "GQA", CHECK_B, CHECK_P,
+                        CHECK_STEPS, seed, params=params)
+    del params
+    torch.cuda.empty_cache()
+    return rel, worst
+
+
+def arch_serve(args, torch, kops, m, dev, arch, layers, seed) -> dict:
+    """18c: ``arch`` in bfloat16 at its published widths (``layers`` of its
+    layers, None: all) through ServeEngine.generate, ARCH_B prompts of
+    ARCH_P tokens and ARCH_G greedy new tokens (after a 2-token warm-up
+    call): prefill ms, decode ms a step, tokens/s, peak memory, no kernel
+    launched (dense FFNs), and torch.profiler breakdowns of the prefill and
+    one decode step; a tied head (x @ embed^T) timed at decode beside a
+    row-major copy of it. Returns its arch_* keys."""
+    ttr = m["ttr"]
+    cfg = arch_model(m, arch, layers, "bfloat16")
+    B, P, G = ARCH_B, ARCH_P, ARCH_G
+    held = torch.cuda.memory_allocated() / 1e9
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = ttr.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    drawn = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device=dev)
+    engine = m["ServeEngine"](cfg, params, max_len=P + G, device=dev)
+    engine.generate(prompts, 2)  # the first calls: cuBLAS's handles and heuristics
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    out, stats = engine.generate(prompts, G)
+    launches = dict(kops.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    new = out[:, P:]
+    ok = (tuple(out.shape) == (B, P + G) and not any(launches.values())
+          and bool(((new >= 0) & (new < cfg.vocab_size)).all()))
+    full = m["get_config"](arch).n_layers
+    depth = f"all {full} layers" if layers is None else f"cut to {layers} of {full} layers"
+    rec = {"layers": cfg.n_layers, "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms": stats["decode_s"] * 1e3 / (G - 1),
+           "tokens_per_s": stats["tokens_per_s"], "peak_gb": peak}
+    print(f"  {arch} {depth}, bfloat16 ({param_counts(cfg, params)}, drawn in "
+          f"{drawn:.2f} s; {held:.3f} GB held before): B={B} prompts of {P} tokens, {G} greedy "
+          f"new tokens: prefill ms={rec['prefill_ms']:.3f} decode ms/step={rec['decode_ms']:.3f} "
+          f"tokens/s={rec['tokens_per_s']:.1f} peak GB={peak:.3f}; kernel launches {launches} "
+          f"(none expected: dense FFNs) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch} generate: tokens {tuple(out.shape)}, launches {launches}")
+    with torch.inference_mode():
+        cache = ttr.init_cache(cfg, B, P + G, device=dev)
+        for tag, fn in (("prefill", lambda: engine._prefill(prompts, cache)),
+                        ("decode", lambda: engine._decode(out[:, P:P + 1], cache, P, 0.0,
+                                                          None))):
+            br = serve_breakdown(torch, m, f"{arch} {tag} (B={B}, "
+                                 + (f"P={P})" if tag == "prefill" else f"position {P})"), fn)
+            rec[f"busy_{tag}"] = None if br is None else br["busy_ms"] / br["wall_ms"]
+        del cache
+        if cfg.tie_embeddings:  # the head reads the embedding transposed
+            E = params["embed"]
+            x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev).to(E.dtype)
+            rec["head_tied_ms"] = median_ms(lambda: x @ E.T, args.reps)
+            rows = E.T.contiguous()
+            rec["head_rowmajor_ms"] = median_ms(lambda: x @ rows, args.reps)
+            print(f"  {arch} tied head at decode (median of {args.reps}, CUDA events): "
+                  f"x {tuple(x.shape)} @ embed^T (a transposed view) ms="
+                  f"{rec['head_tied_ms']:.4f}, @ a row-major ({cfg.d_model}, {cfg.vocab_size}) "
+                  f"copy ms={rec['head_rowmajor_ms']:.4f}")
+            del rows
+    del engine, params, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_examples_archs(args, torch, kops, kref, dev):
+    """Phase 18: 18a K2 at train_e2e's tables, 18b the examples in
+    subprocesses, 18c granite-8b, nemotron-4-15b and chameleon-34b (cut)
+    served at their published widths, each first checked in float32 on
+    2 layers. Returns {kernel: keys}."""
+    t_start = time.perf_counter()
+    m = serve_modules()
+    keys = phase_examples(args, torch, kops, kref, m, dev)
+    print(f"phase 18c: the archs never served on the card before, at their published widths "
+          f"(checks: float32, TF32 off, {ARCH_CHECK_LAYERS} layers; served: bfloat16 from "
+          f"--seed)")
+    for i, (arch, layers) in enumerate(ARCHS):
+        short = arch.split("-")[0]
+        cpu_rel, decode_rel = arch_check(args, torch, kops, m, dev, arch, args.seed + 80 + i)
+        rec = arch_serve(args, torch, kops, m, dev, arch, layers, args.seed + 90 + i)
+        rec.update(cpu_rel=cpu_rel, decode_rel=decode_rel)
+        keys["bsr_spmm"].update({f"arch_{short}_{k}": v for k, v in rec.items()})
+    print(f"phase 18: {time.perf_counter() - t_start:.1f} s")
+    keys["bsr_spmm"]["phase18_s"] = time.perf_counter() - t_start
+    return keys
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4957,6 +5355,9 @@ def main() -> int:
 
     # -- phase 17 ----------------------------------------------------------
     serve_shard_keys = phase_sharded_serve(args, torch, kops, dev)
+
+    # -- phase 18 ----------------------------------------------------------
+    example_keys = phase_examples_archs(args, torch, kops, kref, dev)
     short = {"bfloat16": "bf16", "float32": "f32"}
     ffn_rows = [  # K2 at the FFN shapes: ffn_* the `in` pattern, ffn_out_* the `out` one
         (f"ffn{'' if p == 'in' else '_out'}_{shape}_{short[d]}", dict(r, launches=serve_k2))
@@ -4999,6 +5400,7 @@ def main() -> int:
         extra.update(shard_keys.get(kname, {}))  # phase 15: sharded staging
         extra.update(model_shard_keys.get(kname, {}))  # phase 16: model sharding
         extra.update(serve_shard_keys.get(kname, {}))  # phase 17: sharded serving, dry-run
+        extra.update(example_keys.get(kname, {}))  # phase 18: the examples, three archs
         summary.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces, launches=n, **rec,
             **extra,

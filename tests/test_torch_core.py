@@ -122,12 +122,15 @@ def test_tiled_pattern_matches_reference(case, tile):
 # rules of the port
 # ---------------------------------------------------------------------- #
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    assert {p.name for p in files} >= {"quickstart.py", "pattern_reuse.py", "serve_blockwise.py",
+                                       "train_e2e.py"}
     banned = {"jax", "jaxlib", "repro"}
     bad = []
     for path in files:
