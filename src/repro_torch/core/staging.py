@@ -36,6 +36,10 @@ Stage 2  PyTorch runs eagerly: there is no program to compile. The kernels
 The density-threshold hybrid (paper Listings 3/4) routes blocks whose fill
 is below ``density_threshold`` to an unrolled COO tail instead of dense
 loops, given staging-time ``value_hints``.
+
+A call runs inside the ``staged.call`` span, the values' packing into tiles
+inside ``staged.pack`` and the 'cuda' backend's K1/K2 launch inside
+``staged.kernel`` (``tracing``).
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import torch
 
 from ..device import on_device, resolve_device
 from ..kernels import ops as kops
+from ..tracing import span
 from . import vbr as vbrlib
 from .backends import BlockMatmul, match_block_matmul, vectorize
 from .dsl import ArrayVal, RepRange, stage_op
@@ -288,8 +293,9 @@ class StagedKernel:
 
     def _gather_tiles(self, val: torch.Tensor) -> torch.Tensor:
         t = self.tiled
-        v1 = torch.cat([val.new_zeros(1), val])  # slot 0 = zero (tile padding)
-        return v1[self._val_gather].reshape(t.n_tiles, t.tm, t.tk)
+        with span("staged.pack"):
+            v1 = torch.cat([val.new_zeros(1), val])  # slot 0 = zero (tile padding)
+            return v1[self._val_gather].reshape(t.n_tiles, t.tm, t.tk)
 
     # ------------------------------------------------------------------ #
     def _build(self) -> Callable:
@@ -369,14 +375,15 @@ class StagedKernel:
                 # with prepack the caller already packed via self.pack()
                 tiles = val if prepack else self._gather_tiles(val)
                 xp = with_zero_row(x)[x_src]
-                if kind == "spmv":
-                    yp = kops.bsr_spmv(tiles, row_ids, col_ids, xp, m_pad=m_pad,
-                                       row_ptr=row_ptr, schedule=schedules.get(xp.dtype),
-                                       device=dev)
-                else:
-                    yp = kops.bsr_spmm(tiles, row_ids, col_ids, xp, m_pad=m_pad, bn=bn,
-                                       row_ptr=row_ptr, schedule=schedules.get(xp.dtype),
-                                       device=dev)
+                with span("staged.kernel"):
+                    if kind == "spmv":
+                        yp = kops.bsr_spmv(tiles, row_ids, col_ids, xp, m_pad=m_pad,
+                                           row_ptr=row_ptr, schedule=schedules.get(xp.dtype),
+                                           device=dev)
+                    else:
+                        yp = kops.bsr_spmm(tiles, row_ids, col_ids, xp, m_pad=m_pad, bn=bn,
+                                           row_ptr=row_ptr, schedule=schedules.get(xp.dtype),
+                                           device=dev)
                 return add_coo(yp[y_src], val, x)
 
             return fn
@@ -413,7 +420,8 @@ class StagedKernel:
         return self._gather_tiles(val)
 
     def __call__(self, val, x):
-        return self._fn(*self._inputs(val, x))
+        with span("staged.call"):
+            return self._fn(*self._inputs(val, x))
 
     def compile(self, val, x) -> "StagedKernel":
         """Build the kernels (first use) and run one call on example inputs,

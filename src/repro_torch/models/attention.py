@@ -30,6 +30,8 @@ rank over its block, for every query head, and joined by
 ``ctx.combine_partial_softmax``; each rank then keeps its own heads'
 output. MLA's materialized prefill gathers the latent over "model" instead.
 ``_sdpa_chunked`` stays off under a mesh, as it is for per-lane positions.
+
+``gqa_apply`` and ``mla_apply`` run inside the ``attn`` span (``tracing``).
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ from ..distributed.ctx import (
     model_whole,
     split_over_model,
 )
+from ..tracing import span
 from .config import ModelConfig
 from .layers import dense_init, rmsnorm, rope
 
@@ -230,74 +233,75 @@ def gqa_apply(
     global positions. A (B,) tensor ``cache_pos`` gives each lane its own
     offset (the scheduler's batched decode over lanes at different
     positions): an indexed write on the batch axis, a per-lane mask."""
-    B, S, d = x.shape
-    H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    part = model_part(H)
-    cp = cache is not None and _seq_split(cache["k"])
-    kv_of = None
-    if part is None:
-        split = None
-        q = (x @ fetch(p["wq"].to(x.dtype))).reshape(B, S, H, Dh)
-        k = (x @ fetch(p["wk"].to(x.dtype))).reshape(B, S, Kv, Dh)
-        v = (x @ fetch(p["wv"].to(x.dtype))).reshape(B, S, Kv, Dh)
-        qn, kn = p.get("qn"), p.get("kn")
-    else:  # this rank's query heads; their key/value heads
-        split, xin = MODEL, model_input(x)
-        wq = fetch(p["wq"].to(x.dtype), None, MODEL)
-        H = wq.shape[-1] // Dh
-        q = (xin @ wq).reshape(B, S, H, Dh)
-        qn = model_input(p["qn"]) if cfg.qk_norm else None
-        if model_part(Kv) and (cache is None or _heads_split(cache["k"])):
-            wk = fetch(p["wk"].to(x.dtype), None, MODEL)
-            Kv = wk.shape[-1] // Dh
-            k = (xin @ wk).reshape(B, S, Kv, Dh)
-            v = (xin @ fetch(p["wv"].to(x.dtype), None, MODEL)).reshape(B, S, Kv, Dh)
-            kn = model_input(p["kn"]) if cfg.qk_norm else None
-        else:  # every key/value head (cached whole), then one a query head
+    with span("attn"):
+        B, S, d = x.shape
+        H, Kv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        part = model_part(H)
+        cp = cache is not None and _seq_split(cache["k"])
+        kv_of = None
+        if part is None:
+            split = None
+            q = (x @ fetch(p["wq"].to(x.dtype))).reshape(B, S, H, Dh)
             k = (x @ fetch(p["wk"].to(x.dtype))).reshape(B, S, Kv, Dh)
             v = (x @ fetch(p["wv"].to(x.dtype))).reshape(B, S, Kv, Dh)
-            if cfg.qk_norm:
-                k = rmsnorm(k, p["kn"], cfg.norm_eps)
-            kn = None
-            kv_of = (part[0] * H + torch.arange(H, device=x.device)) // (cfg.n_heads // Kv)
-    if cfg.qk_norm:
-        q = rmsnorm(q, qn, cfg.norm_eps)
-        if kn is not None:
-            k = rmsnorm(k, kn, cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+            qn, kn = p.get("qn"), p.get("kn")
+        else:  # this rank's query heads; their key/value heads
+            split, xin = MODEL, model_input(x)
+            wq = fetch(p["wq"].to(x.dtype), None, MODEL)
+            H = wq.shape[-1] // Dh
+            q = (xin @ wq).reshape(B, S, H, Dh)
+            qn = model_input(p["qn"]) if cfg.qk_norm else None
+            if model_part(Kv) and (cache is None or _heads_split(cache["k"])):
+                wk = fetch(p["wk"].to(x.dtype), None, MODEL)
+                Kv = wk.shape[-1] // Dh
+                k = (xin @ wk).reshape(B, S, Kv, Dh)
+                v = (xin @ fetch(p["wv"].to(x.dtype), None, MODEL)).reshape(B, S, Kv, Dh)
+                kn = model_input(p["kn"]) if cfg.qk_norm else None
+            else:  # every key/value head (cached whole), then one a query head
+                k = (x @ fetch(p["wk"].to(x.dtype))).reshape(B, S, Kv, Dh)
+                v = (x @ fetch(p["wv"].to(x.dtype))).reshape(B, S, Kv, Dh)
+                if cfg.qk_norm:
+                    k = rmsnorm(k, p["kn"], cfg.norm_eps)
+                kn = None
+                kv_of = (part[0] * H + torch.arange(H, device=x.device)) // (cfg.n_heads // Kv)
+        if cfg.qk_norm:
+            q = rmsnorm(q, qn, cfg.norm_eps)
+            if kn is not None:
+                k = rmsnorm(k, kn, cfg.norm_eps)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
-    per_lane = isinstance(cache_pos, torch.Tensor)
-    if cache is not None:
-        write_cache(cache, {"k": k, "v": v}, cache_pos, S)
-    if cp:  # every query head over this rank's positions, joined over "model"
-        k_loc = local_of(cache["k"]).to(x.dtype)
-        lo = model_offset(cache["k"], 1)
-        qa = _gather_heads(q, split)
-        mask = _cp_mask(S, k_loc.shape[1], lo, cache_pos, x.device) if causal else None
-        out = _sdpa_cp(qa.reshape(B, S, Kv, qa.shape[2] // Kv, Dh), k_loc,
-                       local_of(cache["v"]).to(x.dtype), mask)
-        out = _own_heads(out.reshape(B, S, -1, Dh), split, H)
-    else:
+        per_lane = isinstance(cache_pos, torch.Tensor)
         if cache is not None:
-            k_all, v_all = local_of(cache["k"]).to(x.dtype), local_of(cache["v"]).to(x.dtype)
-            q_offset = cache_pos
+            write_cache(cache, {"k": k, "v": v}, cache_pos, S)
+        if cp:  # every query head over this rank's positions, joined over "model"
+            k_loc = local_of(cache["k"]).to(x.dtype)
+            lo = model_offset(cache["k"], 1)
+            qa = _gather_heads(q, split)
+            mask = _cp_mask(S, k_loc.shape[1], lo, cache_pos, x.device) if causal else None
+            out = _sdpa_cp(qa.reshape(B, S, Kv, qa.shape[2] // Kv, Dh), k_loc,
+                           local_of(cache["v"]).to(x.dtype), mask)
+            out = _own_heads(out.reshape(B, S, -1, Dh), split, H)
         else:
-            k_all, v_all = k, v
-            q_offset = 0
-        if kv_of is not None:  # G = 1
-            k_all, v_all = model_input(k_all)[:, :, kv_of], model_input(v_all)[:, :, kv_of]
-            Kv = H
-        qg = q.reshape(B, S, Kv, H // Kv, Dh)
-        chunk = cfg.attn_chunk
-        if (chunk and S > 1 and k_all.shape[1] >= 2 * chunk and not per_lane
-                and current() is None):
-            out = _sdpa_chunked(qg, k_all, v_all, q_offset, causal, chunk)
-        else:
-            mask = causal_mask(S, k_all.shape[1], q_offset, x.device) if causal else None
-            out = _sdpa(qg, k_all, v_all, mask)
-    out = out.reshape(B, S, H * Dh) @ fetch(p["wo"].to(x.dtype), split, None)
-    return constrain(out, src="partial" if split else None), cache
+            if cache is not None:
+                k_all, v_all = local_of(cache["k"]).to(x.dtype), local_of(cache["v"]).to(x.dtype)
+                q_offset = cache_pos
+            else:
+                k_all, v_all = k, v
+                q_offset = 0
+            if kv_of is not None:  # G = 1
+                k_all, v_all = model_input(k_all)[:, :, kv_of], model_input(v_all)[:, :, kv_of]
+                Kv = H
+            qg = q.reshape(B, S, Kv, H // Kv, Dh)
+            chunk = cfg.attn_chunk
+            if (chunk and S > 1 and k_all.shape[1] >= 2 * chunk and not per_lane
+                    and current() is None):
+                out = _sdpa_chunked(qg, k_all, v_all, q_offset, causal, chunk)
+            else:
+                mask = causal_mask(S, k_all.shape[1], q_offset, x.device) if causal else None
+                out = _sdpa(qg, k_all, v_all, mask)
+        out = out.reshape(B, S, H * Dh) @ fetch(p["wo"].to(x.dtype), split, None)
+        return constrain(out, src="partial" if split else None), cache
 
 
 # ---------------------------------------------------------------------- #
@@ -345,81 +349,82 @@ def mla_apply(
     queries, scores taken in the kv_lora-wide latent space plus the rope
     term, the probabilities applied to the latents and ``wuv`` after. Scores
     and softmax in float32 at scale 1/sqrt(qk_nope_dim + qk_rope_dim)."""
-    m = cfg.mla
-    B, S, d = x.shape
-    H = cfg.n_heads
-    C, dn, dr, dv = m.kv_lora_rank, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
-    if absorb is None:
-        absorb = cache is not None and S == 1
+    with span("attn"):
+        m = cfg.mla
+        B, S, d = x.shape
+        H = cfg.n_heads
+        C, dn, dr, dv = m.kv_lora_rank, m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim
+        if absorb is None:
+            absorb = cache is not None and S == 1
 
-    # the latents are whole on every model rank; the heads split where
-    # they divide the tensor axis
-    split = MODEL if model_part(H) else None
-    cq = rmsnorm(x @ fetch(p["wdq"].to(x.dtype)), p["qln"], cfg.norm_eps)
-    wuq = fetch(p["wuq"].to(x.dtype), None, split)
-    H = wuq.shape[-1] // (dn + dr)
-    q = (model_input(cq) if split else cq) @ wuq
-    q = q.reshape(B, S, H, dn + dr)
-    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+        # the latents are whole on every model rank; the heads split where
+        # they divide the tensor axis
+        split = MODEL if model_part(H) else None
+        cq = rmsnorm(x @ fetch(p["wdq"].to(x.dtype)), p["qln"], cfg.norm_eps)
+        wuq = fetch(p["wuq"].to(x.dtype), None, split)
+        H = wuq.shape[-1] // (dn + dr)
+        q = (model_input(cq) if split else cq) @ wuq
+        q = q.reshape(B, S, H, dn + dr)
+        q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
 
-    ckv_full = x @ fetch(p["wdkv"].to(x.dtype))  # (B, S, C + dr)
-    ckv = rmsnorm(ckv_full[..., :C], p["kvln"], cfg.norm_eps)
-    k_rope = rope(ckv_full[..., None, C:], positions, cfg.rope_theta)[:, :, 0]  # (B, S, dr)
+        ckv_full = x @ fetch(p["wdkv"].to(x.dtype))  # (B, S, C + dr)
+        ckv = rmsnorm(ckv_full[..., :C], p["kvln"], cfg.norm_eps)
+        k_rope = rope(ckv_full[..., None, C:], positions, cfg.rope_theta)[:, :, 0]  # (B, S, dr)
 
-    if cache is not None:
-        write_cache(cache, {"ckv": ckv, "kr": k_rope}, cache_pos, S)
-        cp = _seq_split(cache["ckv"])
-        lo = model_offset(cache["ckv"], 1)
-        if cp and not absorb:  # the materialized prefill reads every position
-            ckv_all, kr_all, lo = model_whole(cache["ckv"]), model_whole(cache["kr"]), 0
+        if cache is not None:
+            write_cache(cache, {"ckv": ckv, "kr": k_rope}, cache_pos, S)
+            cp = _seq_split(cache["ckv"])
+            lo = model_offset(cache["ckv"], 1)
+            if cp and not absorb:  # the materialized prefill reads every position
+                ckv_all, kr_all, lo = model_whole(cache["ckv"]), model_whole(cache["kr"]), 0
+                cp = False
+            else:
+                ckv_all, kr_all = local_of(cache["ckv"]), local_of(cache["kr"])
+            ckv_all, kr_all = ckv_all.to(x.dtype), kr_all.to(x.dtype)
+            mask = _cp_mask(S, ckv_all.shape[1], lo, cache_pos, x.device)
+        else:
             cp = False
-        else:
-            ckv_all, kr_all = local_of(cache["ckv"]), local_of(cache["kr"])
-        ckv_all, kr_all = ckv_all.to(x.dtype), kr_all.to(x.dtype)
-        mask = _cp_mask(S, ckv_all.shape[1], lo, cache_pos, x.device)
-    else:
-        cp = False
-        ckv_all, kr_all = ckv, k_rope
-        mask = causal_mask(S, S, 0, x.device) if causal else None
-    if split and not cp:
-        ckv_all, kr_all = model_input(ckv_all), model_input(kr_all)
-    sk = ckv_all.shape[1]
+            ckv_all, kr_all = ckv, k_rope
+            mask = causal_mask(S, S, 0, x.device) if causal else None
+        if split and not cp:
+            ckv_all, kr_all = model_input(ckv_all), model_input(kr_all)
+        sk = ckv_all.shape[1]
 
-    wukv = fetch(p["wukv"].to(x.dtype), None, split).reshape(C, H, dn + dv)
-    wuk, wuv = wukv[..., :dn], wukv[..., dn:]  # (C, H, dn), (C, H, dv)
-    scale = 1.0 / math.sqrt(dn + dr)
-    if cp:  # absorbed, every head over this rank's latent positions, joined
-        q_c = _gather_heads(torch.einsum("bqhd,chd->bqhc", q_nope, wuk), split)
-        q_r = _gather_heads(q_rope, split)
-        scores = (torch.einsum("bqhc,bsc->bhqs", q_c, ckv_all)
-                  + torch.einsum("bqhd,bsd->bhqs", q_r, kr_all)).float() * scale
-        scores = torch.where(mask[:, 0], scores, NEG_INF)
-        m_ = scores.amax(dim=-1)
-        e = torch.exp(scores - m_[..., None])
-        acc = torch.einsum("bhqs,bsc->bhqc", e, ckv_all.float())
-        m_, l_, acc = combine_partial_softmax(m_, e.sum(dim=-1), acc)
-        o_c = _own_heads((acc / l_[..., None]).permute(0, 2, 1, 3).to(x.dtype), split, H)
-        out = torch.einsum("bqhc,chd->bqhd", o_c, wuv)
-    else:
-        if absorb:
-            q_c = torch.einsum("bqhd,chd->bqhc", q_nope, wuk)  # (B, S, H, C)
+        wukv = fetch(p["wukv"].to(x.dtype), None, split).reshape(C, H, dn + dv)
+        wuk, wuv = wukv[..., :dn], wukv[..., dn:]  # (C, H, dn), (C, H, dv)
+        scale = 1.0 / math.sqrt(dn + dr)
+        if cp:  # absorbed, every head over this rank's latent positions, joined
+            q_c = _gather_heads(torch.einsum("bqhd,chd->bqhc", q_nope, wuk), split)
+            q_r = _gather_heads(q_rope, split)
             scores = (torch.einsum("bqhc,bsc->bhqs", q_c, ckv_all)
-                      + torch.einsum("bqhd,bsd->bhqs", q_rope, kr_all)).float() * scale
-        else:
-            kv = torch.einsum("bsc,chd->bshd", ckv_all, wukv)  # materialized k_nope | v
-            k = torch.cat([kv[..., :dn], kr_all[:, :, None].expand(B, sk, H, dr)], dim=-1)
-            qf = torch.cat([q_nope, q_rope], dim=-1)
-            scores = torch.einsum("bqhd,bshd->bhqs", qf, k).float() * scale
-        if mask is not None:
+                      + torch.einsum("bqhd,bsd->bhqs", q_r, kr_all)).float() * scale
             scores = torch.where(mask[:, 0], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        if absorb:
-            o_c = torch.einsum("bhqs,bsc->bqhc", probs, ckv_all)  # compressed values
+            m_ = scores.amax(dim=-1)
+            e = torch.exp(scores - m_[..., None])
+            acc = torch.einsum("bhqs,bsc->bhqc", e, ckv_all.float())
+            m_, l_, acc = combine_partial_softmax(m_, e.sum(dim=-1), acc)
+            o_c = _own_heads((acc / l_[..., None]).permute(0, 2, 1, 3).to(x.dtype), split, H)
             out = torch.einsum("bqhc,chd->bqhd", o_c, wuv)
         else:
-            out = torch.einsum("bhqs,bshd->bqhd", probs, kv[..., dn:])
-    out = out.reshape(B, S, H * dv) @ fetch(p["wo"].to(x.dtype), split, None)
-    return constrain(out, src="partial" if split else None), cache
+            if absorb:
+                q_c = torch.einsum("bqhd,chd->bqhc", q_nope, wuk)  # (B, S, H, C)
+                scores = (torch.einsum("bqhc,bsc->bhqs", q_c, ckv_all)
+                          + torch.einsum("bqhd,bsd->bhqs", q_rope, kr_all)).float() * scale
+            else:
+                kv = torch.einsum("bsc,chd->bshd", ckv_all, wukv)  # materialized k_nope | v
+                k = torch.cat([kv[..., :dn], kr_all[:, :, None].expand(B, sk, H, dr)], dim=-1)
+                qf = torch.cat([q_nope, q_rope], dim=-1)
+                scores = torch.einsum("bqhd,bshd->bhqs", qf, k).float() * scale
+            if mask is not None:
+                scores = torch.where(mask[:, 0], scores, NEG_INF)
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            if absorb:
+                o_c = torch.einsum("bhqs,bsc->bqhc", probs, ckv_all)  # compressed values
+                out = torch.einsum("bqhc,chd->bqhd", o_c, wuv)
+            else:
+                out = torch.einsum("bhqs,bshd->bqhd", probs, kv[..., dn:])
+        out = out.reshape(B, S, H * dv) @ fetch(p["wo"].to(x.dtype), split, None)
+        return constrain(out, src="partial" if split else None), cache
 
 
 # ---------------------------------------------------------------------- #

@@ -26,6 +26,11 @@ gathered back before the combine. The dropless path gathers every
 expert's weights (the reference's "no EP resharding") and runs whole on
 each model rank; the shared experts are a Megatron FFN. The load-balance
 loss takes its means over the whole batch (sums over the data shards).
+
+``moe_apply`` runs inside the ``moe`` span, its parts inside ``moe.route``,
+``moe.dispatch``, ``moe.experts`` (the topology, K3 and K2 on the dropless
+path), ``moe.combine`` and ``moe.shared`` (``tracing``), and hands the
+router's counts to ``tracing.record_route``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ..device import resolve_device
 from ..distributed.ctx import DP, MODEL, constrain, dp_size, dp_sum, fetch, model_input, model_part
 from ..kernels.bsr_ops import dsd, sdd
 from ..sparse.block_csr import topology_from_mask
+from ..tracing import record_route, span
 from .config import ModelConfig
 from .layers import _act
 
@@ -240,24 +246,31 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, per_lane: bool = False
     mc = cfg.moe
     B, S, d = x.shape
     E, k = mc.num_experts, mc.top_k
-    r = _route(p, x, cfg, per_lane)
-    buf = _dispatch(x, r, cfg)
-    if mc.dropless:
-        out_buf = _dropless_ffn(p, buf, r.counts, r.Tg, cfg)
-    else:
-        out_buf = _capacity_ffn(p, buf, cfg)
-    del buf
-    y = _combine(out_buf, r, x.dtype)
-    if mc.num_shared:
-        y = y + _shared_experts(p, x.reshape(B * S, d), cfg)
+    with span("moe"):
+        with span("moe.route"):
+            r = _route(p, x, cfg, per_lane)
+        record_route(r.counts)
+        with span("moe.dispatch"):
+            buf = _dispatch(x, r, cfg)
+        with span("moe.experts"):
+            if mc.dropless:
+                out_buf = _dropless_ffn(p, buf, r.counts, r.Tg, cfg)
+            else:
+                out_buf = _capacity_ffn(p, buf, cfg)
+        del buf
+        with span("moe.combine"):
+            y = _combine(out_buf, r, x.dtype)
+        if mc.num_shared:
+            with span("moe.shared"):
+                y = y + _shared_experts(p, x.reshape(B * S, d), cfg)
 
-    # Switch-style load-balance aux loss, its means over the whole batch
-    n_dp = dp_size()
-    if n_dp == 1:
-        me = r.probs.reshape(-1, E).mean(dim=0)  # mean router prob per expert
-        ce = r.counts.sum(dim=0).float() / (r.G * r.Tg * k)
-    else:  # the sums of every data shard
-        me = dp_sum(r.probs.reshape(-1, E).sum(dim=0)) / (r.G * r.Tg * n_dp)
-        ce = dp_sum(r.counts.sum(dim=0).float()) / (r.G * r.Tg * k * n_dp)
-    aux = mc.aux_loss_coef * E * torch.sum(me * ce)
+        # Switch-style load-balance aux loss, its means over the whole batch
+        n_dp = dp_size()
+        if n_dp == 1:
+            me = r.probs.reshape(-1, E).mean(dim=0)  # mean router prob per expert
+            ce = r.counts.sum(dim=0).float() / (r.G * r.Tg * k)
+        else:  # the sums of every data shard
+            me = dp_sum(r.probs.reshape(-1, E).sum(dim=0)) / (r.G * r.Tg * n_dp)
+            ce = dp_sum(r.counts.sum(dim=0).float()) / (r.G * r.Tg * k * n_dp)
+        aux = mc.aux_loss_coef * E * torch.sum(me * ce)
     return y.reshape(B, S, d), aux

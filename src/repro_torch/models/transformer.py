@@ -55,6 +55,9 @@ layer with cross-attention computes the encoder output's keys and values
 place into the cache's ``cross`` leaves (in the cache's dtype), which the
 "decode" mode reads, so that a decode step needs no ``enc_out``. A chunked
 prefill recomputes them every chunk, as the reference's does.
+
+``prefill`` and ``prefill_chunk`` run inside the ``model.prefill`` span,
+``decode_step`` inside ``model.decode`` (``tracing``).
 """
 from __future__ import annotations
 
@@ -79,6 +82,7 @@ from ..distributed.ctx import (
     rows,
     rows_whole,
 )
+from ..tracing import span
 from .attention import (
     cross_apply,
     cross_init,
@@ -492,13 +496,14 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, cache, start: int, enc_out=N
     sub-layer in "prefill" mode recomputes its state from scratch over just
     this chunk (as the reference's does), so chunked callers (the serving
     scheduler) gate on a fully-paged cache."""
-    view = _view(params)
-    tokens = rows(tokens)
-    x = _embed(view, cfg, tokens)
-    positions = start + torch.arange(tokens.shape[1], device=tokens.device)
-    x, _, _ = _run_groups(cfg, cfg.groups, view["groups"], x, positions, _view(cache), start,
-                          cfg.causal, enc_out, "prefill")
-    return _unembed(view, cfg, x[:, -1:]), cache
+    with span("model.prefill"):
+        view = _view(params)
+        tokens = rows(tokens)
+        x = _embed(view, cfg, tokens)
+        positions = start + torch.arange(tokens.shape[1], device=tokens.device)
+        x, _, _ = _run_groups(cfg, cfg.groups, view["groups"], x, positions, _view(cache), start,
+                              cfg.causal, enc_out, "prefill")
+        return _unembed(view, cfg, x[:, -1:]), cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
@@ -507,15 +512,16 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, enc_out=None):
     writes its cache at its own position and attends up to it). An enc-dec
     model reads the cross keys and values its prefill cached: ``enc_out``
     is not needed."""
-    view = _view(params)
-    token = rows(token)
-    if isinstance(pos, torch.Tensor):
-        pos = rows(pos) if pos.dim() else pos
-        positions = pos.to(device=token.device, dtype=torch.int32).reshape(-1, 1)
-    else:
-        positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
-                               device=token.device)
-    x = _embed(view, cfg, token)
-    x, _, _ = _run_groups(cfg, cfg.groups, view["groups"], x, positions, _view(cache), pos,
-                          cfg.causal, enc_out, "decode")
-    return _unembed(view, cfg, x), cache
+    with span("model.decode"):
+        view = _view(params)
+        token = rows(token)
+        if isinstance(pos, torch.Tensor):
+            pos = rows(pos) if pos.dim() else pos
+            positions = pos.to(device=token.device, dtype=torch.int32).reshape(-1, 1)
+        else:
+            positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
+                                   device=token.device)
+        x = _embed(view, cfg, token)
+        x, _, _ = _run_groups(cfg, cfg.groups, view["groups"], x, positions, _view(cache), pos,
+                              cfg.causal, enc_out, "decode")
+        return _unembed(view, cfg, x), cache

@@ -39,6 +39,9 @@ parked sequence's reference. ``resume`` reallocates the private pages and
 copies them back bit for bit. ``release_parked_shared`` demotes a parked
 sequence's retained shared pages to host copies under terminal pressure.
 Page-capacity failures raise the typed ``PagesExhausted``.
+
+``gather`` runs inside the ``kv.gather`` span, ``write_span`` (and so
+``write_prefill``) and ``append_token`` inside ``kv.write`` (``tracing``).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import torch
 from ..device import on_device, resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import init_cache
+from ..tracing import span
 from ..tree import flatten, unflatten
 
 __all__ = ["PageAllocator", "PagedKVCache", "PagesExhausted"]
@@ -450,53 +454,55 @@ class PagedKVCache:
         leaf. State leaves are replaced wholesale. Grows the page table
         (unzeroed: the write plus the tail zero cover every grown page),
         raising ``PagesExhausted`` when it can't."""
-        if not self.ensure_capacity(rid, end, zero=False):
-            raise PagesExhausted(f"no pages for prefill of {rid!r}")
-        self._mark_overwritten(rid, start, end)
-        leaves, _ = flatten(cache)
-        assert len(leaves) == self.num_leaves
-        ps = self.page_size
-        old_len = self.seq_len[rid]
-        j0, j1 = start // ps, (max(end, start + 1) - 1) // ps
-        pages = [self._writable_page(rid, j) for j in range(j0, j1 + 1)]
-        if end > start:
-            pos = np.arange(start, end)
-            page_of = self._index(np.asarray(pages)[pos // ps - j0])
-            off = self._index(pos % ps)
-        for i, leaf in enumerate(leaves):
-            arr = on_device(leaf, self.device)
-            if self.paged[i]:
-                a = self._arenas[i]
-                if end > start:
-                    # (n, repeat, ...feat) at (page, :, offset) per position
-                    a[page_of, :, off] = arr[:, 0, start:end].movedim(0, 1).to(a.dtype)
-                # the frontier page may be fresh (unzeroed): zero the tail
-                # not written yet, so gathered views match the dense cache
-                if end >= old_len and end % ps:
-                    a[pages[-1], :, end % ps:] = 0
-            else:
-                self._state[rid][i] = arr.to(self._dtypes[i], copy=True)
-        self.seq_len[rid] = max(old_len, end)
-        if self.prefix_sharing:
-            self._register(rid)
+        with span("kv.write"):
+            if not self.ensure_capacity(rid, end, zero=False):
+                raise PagesExhausted(f"no pages for prefill of {rid!r}")
+            self._mark_overwritten(rid, start, end)
+            leaves, _ = flatten(cache)
+            assert len(leaves) == self.num_leaves
+            ps = self.page_size
+            old_len = self.seq_len[rid]
+            j0, j1 = start // ps, (max(end, start + 1) - 1) // ps
+            pages = [self._writable_page(rid, j) for j in range(j0, j1 + 1)]
+            if end > start:
+                pos = np.arange(start, end)
+                page_of = self._index(np.asarray(pages)[pos // ps - j0])
+                off = self._index(pos % ps)
+            for i, leaf in enumerate(leaves):
+                arr = on_device(leaf, self.device)
+                if self.paged[i]:
+                    a = self._arenas[i]
+                    if end > start:
+                        # (n, repeat, ...feat) at (page, :, offset) per position
+                        a[page_of, :, off] = arr[:, 0, start:end].movedim(0, 1).to(a.dtype)
+                    # the frontier page may be fresh (unzeroed): zero the tail
+                    # not written yet, so gathered views match the dense cache
+                    if end >= old_len and end % ps:
+                        a[pages[-1], :, end % ps:] = 0
+                else:
+                    self._state[rid][i] = arr.to(self._dtypes[i], copy=True)
+            self.seq_len[rid] = max(old_len, end)
+            if self.prefix_sharing:
+                self._register(rid)
 
     def append_token(self, rid: str, slices, position: int) -> None:
         """Write one decode step's output for one lane: ``slices`` is a
         flat leaf list, paged leaves ``(repeat, ...feat)`` (the KV written
         at ``position``), state leaves ``(repeat, 1, ...)`` (replace the
         stored state)."""
-        if not self.ensure_capacity(rid, position + 1):
-            raise PagesExhausted(f"no pages to append to {rid!r}")
-        self._mark_overwritten(rid, position, position + 1)
-        page = self._writable_page(rid, position // self.page_size)
-        off = position % self.page_size
-        for i, leaf in enumerate(slices):
-            arr = on_device(leaf, self.device)
-            if self.paged[i]:
-                self._arenas[i][page, :, off] = arr
-            else:
-                self._state[rid][i] = arr.to(self._dtypes[i], copy=True)
-        self.seq_len[rid] = max(self.seq_len[rid], position + 1)
+        with span("kv.write"):
+            if not self.ensure_capacity(rid, position + 1):
+                raise PagesExhausted(f"no pages to append to {rid!r}")
+            self._mark_overwritten(rid, position, position + 1)
+            page = self._writable_page(rid, position // self.page_size)
+            off = position % self.page_size
+            for i, leaf in enumerate(slices):
+                arr = on_device(leaf, self.device)
+                if self.paged[i]:
+                    self._arenas[i][page, :, off] = arr
+                else:
+                    self._state[rid][i] = arr.to(self._dtypes[i], copy=True)
+            self.seq_len[rid] = max(self.seq_len[rid], position + 1)
 
     # ------------------------------------------------------------------ #
     # reads
@@ -509,22 +515,23 @@ class PagedKVCache:
         """Materialize the dense batch view for a list of lanes (None =
         empty lane, all zeros), shaped like ``init_cache(cfg, B, view_pages
         * page_size)``: one indexed read per paged leaf on the device."""
-        B = len(rids)
-        tables = self._index([self._full_table(r) for r in rids]).reshape(B, self.view_pages)
-        leaves = []
-        for i in range(self.num_leaves):
-            if self.paged[i]:
-                a = self._arenas[i].movedim(1, 0)  # (repeat, pages, ps, ...feat)
-                v = a[:, tables]  # (repeat, B, VP, ps, ...feat)
-                leaves.append(v.reshape(v.shape[:2] + (-1,) + v.shape[4:]))
-            else:
-                zero = torch.zeros(self._state_shape[i], dtype=self._dtypes[i],
-                                   device=self.device)
-                leaves.append(
-                    torch.cat([zero if r is None else self._state[r][i] for r in rids], dim=1)
-                    if B else zero
-                )
-        return unflatten(self._spec, leaves)
+        with span("kv.gather"):
+            B = len(rids)
+            tables = self._index([self._full_table(r) for r in rids]).reshape(B, self.view_pages)
+            leaves = []
+            for i in range(self.num_leaves):
+                if self.paged[i]:
+                    a = self._arenas[i].movedim(1, 0)  # (repeat, pages, ps, ...feat)
+                    v = a[:, tables]  # (repeat, B, VP, ps, ...feat)
+                    leaves.append(v.reshape(v.shape[:2] + (-1,) + v.shape[4:]))
+                else:
+                    zero = torch.zeros(self._state_shape[i], dtype=self._dtypes[i],
+                                       device=self.device)
+                    leaves.append(
+                        torch.cat([zero if r is None else self._state[r][i] for r in rids], dim=1)
+                        if B else zero
+                    )
+            return unflatten(self._spec, leaves)
 
     def read_dense(self, rid: str, s_max: Optional[int] = None):
         """Dense single-sequence cache for ``rid``, shaped like

@@ -21,6 +21,11 @@ write position, evicting the youngest-arrival lane under page pressure,
 sequences. The transcript, page tables and stats depend only on integer
 lengths and arrival order, never on token values or params.
 
+Spans (``tracing``): ``sched.step`` around ``step()``, ``sched.prefill``
+around a request's prefill (or one chunk of it), ``sched.decode`` around
+the batched decode step, and ``sched.to_host`` around the two reads of
+tokens to the host (a prefill's first token, a decode step's next ones).
+
 ``prefix_sharing`` maps a request's page-aligned prompt prefix onto resident
 pages (refcount + copy-on-write, see ``paged_cache.py``) and prefills only
 the tail; ``chunked_prefill`` prefills ``prefill_chunk`` tokens per step,
@@ -52,6 +57,7 @@ import torch
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import decode_step, init_cache, prefill, prefill_chunk
+from ..tracing import span
 from .paged_cache import PagedKVCache, PagesExhausted, flatten
 
 __all__ = ["Request", "ContinuousBatchingScheduler"]
@@ -70,7 +76,17 @@ _RID = itertools.count()
 class Request:
     """One generation request. ``patterns`` (optional BlockPatterns) are
     the request's sparse structures for plan-warm admission; empty means
-    dense / always warm."""
+    dense / always warm.
+
+    ``metrics`` holds stamps from the scheduler's ``clock``, with
+    ``admitted_at <= prefill_at <= first_token_at <= finished_at``:
+    ``admitted_at`` the reading at the top of the admitting ``step()``,
+    ``prefill_at`` a reading as the request's own prefill starts (its first
+    chunk), ``first_token_at`` a reading once its first token is on the
+    host, ``finished_at`` once its last one is (a request done at admission,
+    ``max_new_tokens == 1``, finishes at its ``first_token_at``). The
+    reference stamps ``first_token_at`` and such a ``finished_at`` with the
+    admitting step's reading and has no ``prefill_at``."""
 
     prompt: np.ndarray  # (P,) int32
     max_new_tokens: int
@@ -399,7 +415,7 @@ class ContinuousBatchingScheduler:
                 self.stats["resumes"] += 1
                 ev["resumed"].append(req.rid)
             elif self.prefix_sharing or self.chunked_prefill:
-                if not self._begin_prefill(req, now, ev):
+                if not self._begin_prefill(req, ev):
                     return
                 ev["admitted"].append(req.rid)
             else:
@@ -412,37 +428,42 @@ class ContinuousBatchingScheduler:
             self.stats["admissions"] += 1
             req.metrics.setdefault("admitted_at", now)
             if len(req.tokens) >= req.max_new_tokens:
-                self._finish(req, free[0], now, ev, lane_assigned=False)
+                self._finish(req, free[0], req.metrics["first_token_at"], ev,
+                             lane_assigned=False)
             else:
                 self.lanes[free[0]] = req
 
     def _prompt(self, req: Request, start: int, end: int) -> torch.Tensor:
         return torch.as_tensor(req.prompt[None, start:end], dtype=torch.long).to(self.device)
 
-    def _first_token(self, req: Request, logits, now: float) -> None:
+    def _first_token(self, req: Request, logits) -> None:
         """The first generated token, greedy from the prompt's last
-        position (as ``generate``)."""
+        position (as ``generate``), stamped once it is on the host."""
         row = logits[:, -1].float()  # (1, V)
-        req.tokens.append(int(torch.argmax(row, dim=-1)[0]))
-        if self.record_logits:
-            req.logits.append(row[0].cpu().numpy())
-        req.metrics.setdefault("first_token_at", now)
+        with span("sched.to_host"):
+            req.tokens.append(int(torch.argmax(row, dim=-1)[0]))
+            if self.record_logits:
+                req.logits.append(row[0].cpu().numpy())
+        req.metrics["first_token_at"] = self.clock()
 
     def _prefill_request(self, req: Request, now: float) -> None:
         """Whole-prompt prefill at admission: the plain path (both features
-        off), which the golden transcript freezes."""
-        P = req.prompt_len
-        cache = init_cache(self.cfg, 1, P, device=self.device)
-        logits, cache = prefill(self.params, self.cfg, self._prompt(req, 0, P), cache)
-        self.kv.write_prefill(req.rid, cache, P)
-        self.stats["prefill_tokens"] += P
-        req.prefilled = P
-        self._first_token(req, logits, now)
+        off), which the golden transcript freezes. ``now`` is the admitting
+        step's reading; the stamps take their own."""
+        with span("sched.prefill"):
+            req.metrics["prefill_at"] = self.clock()
+            P = req.prompt_len
+            cache = init_cache(self.cfg, 1, P, device=self.device)
+            logits, cache = prefill(self.params, self.cfg, self._prompt(req, 0, P), cache)
+            self.kv.write_prefill(req.rid, cache, P)
+            self.stats["prefill_tokens"] += P
+            req.prefilled = P
+            self._first_token(req, logits)
 
     # ------------------------------------------------------------------ #
     # prefix-shared / chunked prefill
     # ------------------------------------------------------------------ #
-    def _begin_prefill(self, req: Request, now: float, ev: dict) -> bool:
+    def _begin_prefill(self, req: Request, ev: dict) -> bool:
         """Admission for the sharing/chunked path: attach the shared prompt
         prefix by reference, reserve pages for the tail (or only the first
         chunk when chunking) and prefill it at once unless chunking defers
@@ -461,11 +482,10 @@ class ContinuousBatchingScheduler:
         if req.prefilled:
             ev["shared"][req.rid] = req.prefilled
         if not self.chunked_prefill:
-            self._prefill_one_chunk(req, now, ev, in_admit=True)
+            self._prefill_one_chunk(req, ev, in_admit=True)
         return True
 
-    def _prefill_one_chunk(self, req: Request, now: float, ev: dict,
-                           in_admit: bool = False) -> None:
+    def _prefill_one_chunk(self, req: Request, ev: dict, in_admit: bool = False) -> None:
         """Advance one mid-prefill sequence by one chunk (or the whole tail
         when chunking is off); the final chunk emits the first generated
         token. Page pressure parks other lanes per policy; with nothing
@@ -490,18 +510,21 @@ class ContinuousBatchingScheduler:
                 raise PagesExhausted(f"admission reserve lost for {req.rid!r}")
             self._evict(req, ev)
             return
-        dense = self.kv.read_dense(req.rid, s_max=self._prefill_width)
-        logits, dense = prefill_chunk(self.params, self.cfg, self._prompt(req, start, end),
-                                      dense, start)
-        self.kv.write_span(req.rid, dense, start, end)
-        req.prefilled = end
-        self.stats["prefill_tokens"] += end - start
-        self.stats["prefill_chunks"] += 1
-        ev["prefill"][req.rid] = [start, end]
-        if end == P:
-            self._first_token(req, logits, now)
+        with span("sched.prefill"):
+            if "prefill_at" not in req.metrics:
+                req.metrics["prefill_at"] = self.clock()
+            dense = self.kv.read_dense(req.rid, s_max=self._prefill_width)
+            logits, dense = prefill_chunk(self.params, self.cfg,
+                                          self._prompt(req, start, end), dense, start)
+            self.kv.write_span(req.rid, dense, start, end)
+            req.prefilled = end
+            self.stats["prefill_tokens"] += end - start
+            self.stats["prefill_chunks"] += 1
+            ev["prefill"][req.rid] = [start, end]
+            if end == P:
+                self._first_token(req, logits)
 
-    def _advance_prefills(self, now: float, ev: dict) -> None:
+    def _advance_prefills(self, ev: dict) -> None:
         """One chunk per mid-prefill lane per step, oldest arrival first."""
         if not self.chunked_prefill:
             return
@@ -513,10 +536,10 @@ class ContinuousBatchingScheduler:
             req = self.lanes[i]
             if req is None or req.prefilled >= req.prompt_len:
                 continue  # evicted by an earlier lane's page pressure
-            self._prefill_one_chunk(req, now, ev)
+            self._prefill_one_chunk(req, ev)
             # max_new_tokens == 1: the final chunk's token is the output
             if self.lanes[i] is req and req.tokens and len(req.tokens) >= req.max_new_tokens:
-                self._finish(req, i, now, ev)
+                self._finish(req, i, req.metrics["first_token_at"], ev)
 
     def _release_parked_shared_one(self) -> bool:
         """Terminal-pressure escape valve: demote the youngest parked
@@ -584,92 +607,95 @@ class ContinuousBatchingScheduler:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def step(self) -> dict:
-        now = self.clock()
-        ev = {
-            "step": self.stats["steps"],
-            "admitted": [],
-            "resumed": [],
-            "evicted": [],
-            "finished": [],
-            "staged": [],
-            "running": [],
-            "page_tables": {},
-        }
-        if self.prefix_sharing or self.chunked_prefill:
-            # gated: the frozen transcript compares events by full-dict
-            # equality, so the plain schedule must not grow keys
-            ev["shared"] = {}
-            ev["prefill"] = {}
-        self._stage_cold(ev)
-        self._admit(now, ev)
-        self._advance_prefills(now, ev)
-        active = self._ensure_growth(ev)
-        ev["running"] = [self.lanes[i].rid for i in active]
-        ev["page_tables"] = {
-            self.lanes[i].rid: list(self.kv.page_table[self.lanes[i].rid]) for i in active
-        }
-        if active:
-            self._decode_once(active, ev)
-        self.stats["steps"] += 1
-        for k, v in self.kv.share_stats.items():
-            self.stats[k] = v
-        self.transcript.append(ev)
-        return ev
+        with span("sched.step"):
+            now = self.clock()
+            ev = {
+                "step": self.stats["steps"],
+                "admitted": [],
+                "resumed": [],
+                "evicted": [],
+                "finished": [],
+                "staged": [],
+                "running": [],
+                "page_tables": {},
+            }
+            if self.prefix_sharing or self.chunked_prefill:
+                # gated: the frozen transcript compares events by full-dict
+                # equality, so the plain schedule must not grow keys
+                ev["shared"] = {}
+                ev["prefill"] = {}
+            self._stage_cold(ev)
+            self._admit(now, ev)
+            self._advance_prefills(ev)
+            active = self._ensure_growth(ev)
+            ev["running"] = [self.lanes[i].rid for i in active]
+            ev["page_tables"] = {
+                self.lanes[i].rid: list(self.kv.page_table[self.lanes[i].rid]) for i in active
+            }
+            if active:
+                self._decode_once(active, ev)
+            self.stats["steps"] += 1
+            for k, v in self.kv.share_stats.items():
+                self.stats[k] = v
+            self.transcript.append(ev)
+            return ev
 
     def _decode_once(self, active: List[int], ev: dict) -> None:
         """One batched forward over the decoding lanes (in lane order), one
         copy of the next tokens to the host, then each lane's append."""
-        reqs = [self.lanes[i] for i in active]
-        pos = [r.prompt_len + len(r.tokens) - 1 for r in reqs]
-        # rewound if this step's write is lost
-        before = {r.rid: r.generator.get_state() for r in reqs if r.temperature > 0}
-        view = self.kv.gather([r.rid for r in reqs])
-        nxt, logits, slices = lane_step(
-            self.params, self.cfg, self.kv.paged,
-            torch.as_tensor([[r.tokens[-1]] for r in reqs], dtype=torch.long).to(self.device),
-            view,
-            torch.as_tensor(pos, dtype=torch.long).to(self.device),
-            [r.temperature for r in reqs],
-            [r.generator for r in reqs],
-        )
-        del view
-        nxt = nxt.cpu().tolist()
-        rows = logits.cpu().numpy() if self.record_logits else None
-        now = self.clock()
-        for k, (i, req) in enumerate(zip(active, reqs)):
-            if self.lanes[i] is not req:
-                # parked by an earlier lane's page pressure before its own
-                # append: this step's write is lost, so rewind its draws
-                if req.rid in before:
-                    req.generator.set_state(before[req.rid])
-                continue
-            slices_k = [leaf[k] for leaf in slices]
-            while True:
-                try:
-                    self.kv.append_token(req.rid, slices_k, pos[k])
-                    break
-                except PagesExhausted:
-                    # COW or growth needed a page mid-append: evict per
-                    # policy (youngest other lane first), then the shared-
-                    # page escape valve, then park this lane losslessly
-                    others = [r for r in self.lanes if r is not None and r is not req]
-                    if others:
-                        self._evict(max(others, key=lambda r: (r.arrival, r.rid)), ev)
-                        continue
-                    if self._release_parked_shared_one():
-                        continue
-                    self._evict(req, ev)
+        with span("sched.decode"):
+            reqs = [self.lanes[i] for i in active]
+            pos = [r.prompt_len + len(r.tokens) - 1 for r in reqs]
+            # rewound if this step's write is lost
+            before = {r.rid: r.generator.get_state() for r in reqs if r.temperature > 0}
+            view = self.kv.gather([r.rid for r in reqs])
+            nxt, logits, slices = lane_step(
+                self.params, self.cfg, self.kv.paged,
+                torch.as_tensor([[r.tokens[-1]] for r in reqs], dtype=torch.long).to(self.device),
+                view,
+                torch.as_tensor(pos, dtype=torch.long).to(self.device),
+                [r.temperature for r in reqs],
+                [r.generator for r in reqs],
+            )
+            del view
+            with span("sched.to_host"):
+                nxt = nxt.cpu().tolist()
+                rows = logits.cpu().numpy() if self.record_logits else None
+            now = self.clock()
+            for k, (i, req) in enumerate(zip(active, reqs)):
+                if self.lanes[i] is not req:
+                    # parked by an earlier lane's page pressure before its own
+                    # append: this step's write is lost, so rewind its draws
                     if req.rid in before:
                         req.generator.set_state(before[req.rid])
-                    break
-            if self.lanes[i] is not req:
-                continue  # parked itself above
-            req.tokens.append(int(nxt[k]))
-            if self.record_logits:
-                req.logits.append(rows[k])
-            self.stats["decode_tokens"] += 1
-            if len(req.tokens) >= req.max_new_tokens:
-                self._finish(req, i, now, ev)
+                    continue
+                slices_k = [leaf[k] for leaf in slices]
+                while True:
+                    try:
+                        self.kv.append_token(req.rid, slices_k, pos[k])
+                        break
+                    except PagesExhausted:
+                        # COW or growth needed a page mid-append: evict per
+                        # policy (youngest other lane first), then the shared-
+                        # page escape valve, then park this lane losslessly
+                        others = [r for r in self.lanes if r is not None and r is not req]
+                        if others:
+                            self._evict(max(others, key=lambda r: (r.arrival, r.rid)), ev)
+                            continue
+                        if self._release_parked_shared_one():
+                            continue
+                        self._evict(req, ev)
+                        if req.rid in before:
+                            req.generator.set_state(before[req.rid])
+                        break
+                if self.lanes[i] is not req:
+                    continue  # parked itself above
+                req.tokens.append(int(nxt[k]))
+                if self.record_logits:
+                    req.logits.append(rows[k])
+                self.stats["decode_tokens"] += 1
+                if len(req.tokens) >= req.max_new_tokens:
+                    self._finish(req, i, now, ev)
 
     # ------------------------------------------------------------------ #
     def pending(self) -> int:

@@ -403,6 +403,31 @@ def test_step_invariants_and_lengths_only_transcript(models):
     assert transcript(1) == transcript(2)
 
 
+@pytest.mark.parametrize("path,gens,kw", [
+    ("plain", [4, 3, 5], {}),
+    ("chunked", [4, 1, 3], dict(chunked_prefill=True, prefill_chunk=4)),
+    ("prefix_shared", [3, 1, 4], dict(prefix_sharing=True)),
+    ("one_token", [1, 1, 2], {}),
+])
+def test_stamps_ordered_with_first_token_after_admission(models, path, gens, kw):
+    """On the fake clock every request's stamps keep admitted_at <=
+    prefill_at <= first_token_at <= finished_at, and the first token is
+    stamped after the admitting step's reading (``admitted_at``): on the
+    plain path, the chunked one, the prefix-shared one, and for requests
+    done at admission (one token)."""
+    m = models.llama
+    make = _shared_prompts if kw.get("prefix_sharing") else _prompts
+    prompts = make(m.cfg.vocab_size, [7, 5, 9] if path != "prefix_shared" else [2, 3, 4], 19)
+    reqs = [dict(prompt=p, max_new_tokens=g, rid=f"s{i}", arrival=float(i))
+            for i, (p, g) in enumerate(zip(prompts, gens))]
+    results, _ = m.eng.serve(reqs, page_size=4, max_batch=2, clock=_fake_clock(), **kw)
+    for r in reqs:
+        mt = results[r["rid"]]["metrics"]
+        assert len(results[r["rid"]]["tokens"]) == len(r["prompt"]) + r["max_new_tokens"]
+        assert mt["admitted_at"] <= mt["prefill_at"] <= mt["first_token_at"] <= mt["finished_at"]
+        assert mt["first_token_at"] > mt["admitted_at"]
+
+
 def test_prefix_sharing_allocates_prefix_once_and_matches_generate(models):
     """Four requests with a common 12-token prefix: its 3 pages and 12
     tokens of prefill are paid once, the engine surfaces the counters, and
