@@ -31,6 +31,7 @@ torch.set_num_threads(1)  # xdist runs this file beside the JAX suites
 
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.convert import params_from_arrays  # noqa: E402
+from repro_torch.core import autotune as tautotune  # noqa: E402
 from repro_torch.core import cache as tcache  # noqa: E402
 from repro_torch.core import vbr as tvbr  # noqa: E402
 from repro_torch.models import transformer as ttr  # noqa: E402
@@ -90,10 +91,13 @@ def jx():
 
 @pytest.fixture
 def plan_dir(tmp_path, monkeypatch):
-    """Both packages' plan caches in a fresh directory, empty registries."""
+    """Both packages' plan caches in a fresh directory, empty registries,
+    the port's autotune counters at zero (a script counts from a fresh
+    process; an earlier test file on the same worker may have tuned)."""
     monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))
     tcache.set_default_cache(None)
     tlin._STRATEGY_REGISTRY.clear()
+    tautotune.reset_autotune_stats()
     yield tmp_path
     tcache.set_default_cache(None)
     tlin._STRATEGY_REGISTRY.clear()
